@@ -3,22 +3,37 @@
 Phases, each of which raises on failure (nothing is caught and carried on):
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: compile the hand-written ADC scan kernel (csrc/adc_scan.cu) with
-   nvcc from this checkout;
-3. kernel against its plain PyTorch version on the card, at the primary
-   shapes (B=1024, M=16, 2M codes) with empty, partial and full slots, at
-   both slot widths (256 and 1024 codes);
-4. the main path through the port's driver functions at the primary point:
-   synthetic 2M x 128d corpus, nc=4096, code_size=16; train centroids and
-   PQ, assign, add, finalize; search 8192 queries with engine "fused" at
-   both slot widths (nprobe=32, max_codes=10000, k=10); the kernel's launch
-   count must grow; 512 queries are checked against engine "torch"; recall
-   against exact ground truth computed on the card;
+2. build: compile the hand-written kernels (csrc/adc_scan.cu and
+   csrc/grouping_scan.cu) with nvcc from this checkout, one nvcc process
+   per source, started together;
+3. each kernel against its plain PyTorch version on the card, at the
+   primary shapes (B=1024, M=16, 2M codes) with empty, partial and full
+   slots (and, for the grouping kernel, pruned subgroups), at both slot
+   widths (256 and 1024 codes);
+4. the IVFADC main path through the port's driver functions at the primary
+   point: synthetic 2M x 128d corpus, nc=4096, code_size=16; train
+   centroids and PQ, assign, add, finalize; search 8192 queries with engine
+   "fused" at both slot widths (nprobe=32, max_codes=10000, k=10); the
+   kernel's launch count must grow; 512 queries are checked against engine
+   "torch"; recall against exact ground truth computed on the card;
 5. on the main path's own schedule for one search batch (all 8192
    queries at the default batch): the kernel compared
    with its plain version, both timed, and each layer of the fused search
    timed (CUDA events, median after warm-up); then the whole 8192-query
-   search at each slot width and at batch 1024 and 8192, in turns.
+   search at each slot width and at batch 1024 and 8192, in turns;
+6. determinism: k-means at the primary point (200k learn rows, nc=4096,
+   15 iterations) twice from one seed gives the same centroids, bit for bit;
+7. the Grouping+Pruning+OPQ main path at the flagship point (the JAX
+   bench's own sizes, bench.py:10-11, :686-693): phase 4's corpus, ground
+   truth, coarse centroids and assignments, nsubc=64, OPQ on; neighbours,
+   OPQ + PQ, the alpha pass, the add loop, finalize (each stage timed);
+   search 8192 queries with pruning (nprobe=32, max_codes=10000, k=10) with
+   engine "fused" at both slot widths, the grouping kernel's launch count
+   reset before and read after and required to grow at both widths; 512
+   queries checked against engine "torch" with pruning on and off; recall;
+8. on the grouping path's own schedule for one 8192-query batch: the
+   grouping kernel compared with its plain version, both timed, and each
+   layer of the fused grouping search timed.
 
 Then one JSON line of kernel results, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
@@ -44,6 +59,10 @@ PRIMARY = dict(nb=2_000_000, nt=200_000, nq=8192, d=128, nc=4096,
 KERNELS = {256: "ivfhnsw_tpu/ops/pallas/adc_scan.py:216",
            1024: "ivfhnsw_tpu/ops/pallas/adc_scan.py:368"}
 SOURCE = "ivfhnsw_tpu_torch/csrc/adc_scan.cu"
+GROUPING_KERNELS = {256: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:113",
+                    1024: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:248"}
+GROUPING_SOURCE = "ivfhnsw_tpu_torch/csrc/grouping_scan.cu"
+FLAGSHIP = dict(nsubc=64, do_opq=True, do_pruning=True)
 SEARCH_BATCH = 8192  # IVFADCIndex.search's default batch
 
 
@@ -96,17 +115,28 @@ def assert_same(d1, l1, d2, l2, what: str) -> None:
         raise AssertionError(f"{what}: labels differ at unequal distances")
 
 
-def phase_kernel_vs_plain(tk, device, nb: int) -> None:
+def phase_kernels_vs_plain(device, nb: int) -> None:
+    """Both kernels against their plain versions on synthetic slots at the
+    primary shapes: empty, partial and full slots; for the grouping kernel
+    also the flagship's P=32 probes of nsubc=64, 40% of the subgroups and
+    one whole probe pruned (+inf term2)."""
     import torch
     from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     g = torch.Generator(device=device).manual_seed(0)
-    B, M, N = 1024, 16, nb
-    codes = torch.randint(0, 256, (N, M), dtype=torch.uint8, device=device,
-                          generator=g)
-    ncodes = torch.randint(0, 256, (N,), dtype=torch.uint8, device=device,
-                           generator=g)
+    B, M, N, P, S = 1024, 16, nb, 32, 64
+
+    def rand_u8(shape, high=256):
+        return torch.randint(0, high, shape, dtype=torch.uint8,
+                             device=device, generator=g)
+
+    codes, ncodes, subc = rand_u8((N, M)), rand_u8((N,)), rand_u8((N,), S)
     lut = torch.randn((B, M, 256), device=device, generator=g)
     ntab = torch.rand((256,), device=device, generator=g) * 100
+    t2 = torch.randn((B, P, S), device=device, generator=g)
+    t2[torch.rand((B, P, S), device=device, generator=g) < 0.4] = float("inf")
+    t2[:, 5] = float("inf")
     for gran, nslots in ((256, 80), (1024, 24)):
         kind = torch.randint(0, 3, (B, nslots), device=device, generator=g)
         partial = torch.randint(1, gran, (B, nslots), device=device,
@@ -116,13 +146,32 @@ def phase_kernel_vs_plain(tk, device, nb: int) -> None:
         start = torch.randint(0, N - gran, (B, nslots), device=device,
                               generator=g)
         bias = torch.randn((B, nslots), device=device, generator=g)
-        args = (lut, ntab, codes, ncodes, start, length, bias, gran)
-        out = tk.adc_scan_slots(*args)
-        _sync(device)
-        err = compare(out, tk.adc_scan_slots_plain(*args),
-                      f"synthetic gran={gran}")
-        print(f"[kernel] gran={gran} B={B} slots={nslots}: matches plain, "
-              f"max_abs_err={err!r}", flush=True)
+        seg = torch.randint(0, P, (B, nslots), device=device,
+                            generator=g).int()
+        for tag, fn, plain, args in (
+                ("kernel", tk.adc_scan_slots, tk.adc_scan_slots_plain,
+                 (lut, ntab, codes, ncodes, start, length, bias, gran)),
+                ("gkernel", tg.grouping_scan_slots,
+                 tg.grouping_scan_slots_plain,
+                 (lut, ntab, t2, codes, ncodes, subc, start, length, bias,
+                  seg, gran))):
+            out = fn(*args)
+            _sync(device)
+            if torch.isnan(out).any():
+                raise AssertionError(f"{tag} gran={gran}: NaN lanes")
+            err = compare(out, plain(*args), f"{tag} synthetic gran={gran}")
+            print(f"[{tag}] gran={gran} B={B} slots={nslots}: matches plain, "
+                  f"max_abs_err={err!r}", flush=True)
+
+
+def timed(stages: dict, name: str, fn, device):
+    """fn() with its host seconds, device synced, recorded in stages."""
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    t = time.perf_counter()
+    r = fn()
+    _sync(device)
+    stages[name] = time.perf_counter() - t
+    return r
 
 
 def main() -> int:
@@ -143,15 +192,18 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     t0 = time.perf_counter()
-    so = kbuild.build("adc_scan")
+    sos = kbuild.build_all(["adc_scan", "grouping_scan"])
     tk._kernel()
-    print(f"[build] {so} in {time.perf_counter() - t0:.2f}s", flush=True)
-    with open(so[:-3] + ".log") as f:
-        print("[build] nvcc: " + " | ".join(
-            ln.strip() for ln in f if "ptxas" in ln or "error" in ln),
-            flush=True)
+    tg._kernel()
+    print(f"[build] {sos} in {time.perf_counter() - t0:.2f}s", flush=True)
+    for so in sos:
+        with open(so[:-3] + ".log") as f:
+            print("[build] nvcc: " + " | ".join(
+                ln.strip() for ln in f if "ptxas" in ln or "error" in ln),
+                flush=True)
 
     kernels = run(device, PRIMARY)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -163,7 +215,7 @@ def main() -> int:
 
 
 def run(device, p: dict) -> list:
-    """Phases 3-5 on ``device`` at the sizes ``p``; returns the kernel
+    """Phases 3-8 on ``device`` at the sizes ``p``; returns the kernel
     result records."""
     import torch
     from ivfhnsw_tpu_torch import IVFADCIndex
@@ -174,8 +226,8 @@ def run(device, p: dict) -> list:
     from ivfhnsw_tpu_torch.utils.config import (IndexConfig, RunConfig,
                                                 SearchParams)
 
-    # 3. kernel against plain on synthetic slots
-    phase_kernel_vs_plain(tk, device, p["nb"])
+    # 3. kernels against plain on synthetic slots
+    phase_kernels_vs_plain(device, p["nb"])
 
     # 4. main path
     cfg = RunConfig()
@@ -186,11 +238,7 @@ def run(device, p: dict) -> list:
     stages = {}
 
     def stage(name, fn):
-        t = time.perf_counter()
-        r = fn()
-        C._sync(device)
-        stages[name] = time.perf_counter() - t
-        return r
+        return timed(stages, name, fn, device)
 
     tk.adc_scan_slots.launches = 0
     ds = stage("dataset_host", lambda: C.SyntheticDataset(cfg, 0, device))
@@ -311,6 +359,170 @@ def run(device, p: dict) -> list:
         print(f"[search] fused {layout} batch {batch}, {ds.nq} queries: wall "
               f"s {[round(x, 4) for x in w]} -> {1e6 * min(w) / ds.nq:.3f} "
               f"us/query, {ds.nq / min(w):.0f} QPS (best of 2)", flush=True)
+
+    # 6. determinism of k-means at the primary point
+    phase_determinism(ds, p, device)
+
+    # 7-8. the grouping main path at the flagship point, then its layers
+    kernels += run_grouping(device, p, cfg, ds, index, idxs)
+    return kernels
+
+
+def phase_determinism(ds, p: dict, device) -> None:
+    import torch
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.ops.kmeans import kmeans
+    learn = torch.tensor(ds.learn[:200_000], device=device)
+    runs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        c, _ = kmeans(torch.Generator(device=device).manual_seed(0), learn,
+                      p["nc"], niter=15)
+        _sync(device)
+        runs.append((c, time.perf_counter() - t))
+    if not torch.equal(runs[0][0], runs[1][0]):
+        raise AssertionError("k-means is not bit-reproducible: max abs "
+                             f"diff {(runs[0][0] - runs[1][0]).abs().max()}")
+    print(f"[determinism] kmeans n={learn.shape[0]} k={p['nc']} niter=15 "
+          f"twice from seed 0: torch.equal centroids, "
+          f"{runs[0][1]:.3f} s / {runs[1][1]:.3f} s", flush=True)
+
+
+def run_grouping(device, p: dict, cfg, ds, index, idxs) -> list:
+    """Phases 7-8 at the flagship point over phase 4's corpus; returns the
+    grouping kernel's result records."""
+    import dataclasses
+
+    import torch
+    from ivfhnsw_tpu_torch import IVFADCGroupingIndex
+    from ivfhnsw_tpu_torch.drivers import common as C
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.ops.grouping import query_terms
+
+    gcfg = dataclasses.replace(
+        cfg, index=dataclasses.replace(cfg.index, nsubc=FLAGSHIP["nsubc"],
+                                       do_opq=FLAGSHIP["do_opq"]),
+        search=dataclasses.replace(cfg.search,
+                                   do_pruning=FLAGSHIP["do_pruning"]))
+    stages = {}
+
+    # 7. the main path, in the grouping driver's order (drivers/
+    # grouping_eval.py::build), with the coarse centroids and assignments
+    # of phase 4
+    tg.grouping_scan_slots.launches = 0
+    gi = IVFADCGroupingIndex(gcfg.index, device)
+    gi.set_centroids(index.centroids)
+    gen = torch.Generator(device=device).manual_seed(0)
+    timed(stages, "neighbors", gi.compute_neighbor_centroids, device)
+    timed(stages, "opq_pq", lambda: C.setup_pq(gi, gcfg, ds, gen), device)
+    stages.update(C.build_or_read_index(gi, gcfg, ds, idxs, grouping=True))
+    gsizes = gi.store.grouped(gi.nsubc).group_sizes
+    print(f"[grouping] store {gi.store.ntotal} codes in {gi.nc} groups x "
+          f"{gi.nsubc} subgroups, max group {int(gsizes.max())}, alphas "
+          f"mean {float(gi.alphas.mean()):.4f}, auto layout -> "
+          f"{gi._resolve_layout()}", flush=True)
+    results, launches = {}, {}
+    for layout in ("chunk", "quad"):
+        gi.engine, gi.scan_layout = "fused", layout
+        before = tg.grouping_scan_slots.launches
+        r = C.eval_search(gi, gcfg, ds)
+        launches[gi.scan_gran()] = tg.grouping_scan_slots.launches - before
+        results[layout] = r
+        stages[f"search_{layout}"] = r["us_per_query"] * ds.nq / 1e6
+    for gran, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"grouping kernel gran={gran} never launched "
+                                 "on the main path")
+    sub = 512
+    for pruning in (True, False):
+        params = dataclasses.replace(gcfg.search, do_pruning=pruning)
+        gi.engine = "torch"
+        d_ref, l_ref = gi.search(ds.queries[:sub], params)
+        for layout in ("chunk", "quad"):
+            gi.engine, gi.scan_layout = "fused", layout
+            if pruning:
+                d, l = (results[layout]["dists"][:sub],
+                        results[layout]["labels"][:sub])
+            else:
+                d, l = gi.search(ds.queries[:sub], params)
+            assert_same(d_ref, l_ref, d, l, f"grouping fused {layout} vs "
+                        f"torch engine, pruning={pruning}")
+        print(f"[grouping] fused matches torch engine on {sub} queries at "
+              f"both widths, pruning={pruning}", flush=True)
+    for layout, r in results.items():
+        d, l = r["dists"], r["labels"]
+        if d.shape != (ds.nq, gcfg.search.k) or not np.isfinite(d).all():
+            raise AssertionError(f"grouping {layout}: bad distances")
+        if l.min() < 0 or l.max() >= ds.nb:
+            raise AssertionError(f"grouping {layout}: labels out of range")
+        if r["recalls"][10] < 0.1:
+            raise AssertionError(f"grouping {layout}: R@10 "
+                                 f"{r['recalls'][10]}")
+        us = r["us_per_query"]
+        print(f"[grouping] fused {layout}: {us:.2f} us/query, "
+              f"{1e6 / us:.0f} QPS, R@1 {r['recalls'][1]:.4f} "
+              f"R@10 {r['recalls'][10]:.4f}", flush=True)
+    print("[grouping] stages_s " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}), flush=True)
+
+    # 8. on the path's own schedule for one 8192-query batch
+    kernels = []
+    params = gcfg.search
+    q = torch.tensor(ds.queries[:SEARCH_BATCH], device=device)
+    B, st, gv = q.shape[0], gi.store, gi.store.grouped(gi.nsubc)
+    q_rot = gi._rotate(q)
+    for layout in ("chunk", "quad"):
+        gi.scan_layout = layout
+        gran = gi.scan_gran()
+        nslots = gi._scan_slots(params, params.nprobe)
+        coarse = lambda: streaming_topk_l2(
+            q, gi.centroids, params.nprobe,
+            block=gi._coarse_block_for(B), point_sqnorms=gi.centroid_norms)
+        qc, probes = coarse()
+        terms = lambda: query_terms(
+            q, qc, probes, gi.centroids, gi.centroid_norms,
+            gi.nn_centroid_idxs, gi.alphas, gi.inter_centroid_dists,
+            gv.sub_sizes_t, params.max_codes, params.do_pruning)
+        term1, term2, scan, ssz = terms()
+        t2 = torch.where(scan, term2, float("inf"))
+        eff = torch.where(scan, ssz, 0).sum(dim=2)
+        sched = lambda: tg.grouping_schedule(
+            probes, term1, eff, ssz.sum(dim=2), gv.group_offsets_t,
+            params.max_codes, nslots, gran)
+        start, length, bias, seg = sched()
+        luts = lambda: tg.build_luts(q_rot, gi.pq.codebooks)
+        args = (luts(), gi.norm_pq.centroids, t2, st.codes_t,
+                st.norm_codes_t, gv.subc_t, start, length, bias, seg, gran)
+        dists = tg.grouping_scan_slots(*args)
+        err = compare(dists, tg.grouping_scan_slots_plain(*args),
+                      f"grouping main-path gran={gran}")
+        topk = lambda: tg.topk_labels(dists, start, st.ids_t, params.k, gran)
+        core = lambda: gi._search_fused(q, params, params.nprobe, nslots,
+                                        gran, "topk")
+        ms = time_ms(lambda: tg.grouping_scan_slots(*args))
+        plain_ms = time_ms(lambda: tg.grouping_scan_slots_plain(*args),
+                           reps=5)
+        layers = {"coarse": time_ms(coarse), "terms": time_ms(terms),
+                  "schedule": time_ms(sched), "luts": time_ms(luts),
+                  "scan": ms, "topk_ids": time_ms(topk),
+                  "search_core": time_ms(core)}
+        valid = int(length.sum())
+        kept = int((~torch.isinf(dists)).sum())
+        nbytes = (valid * (st.code_m + 2) + dists.numel() * 4
+                  + B * ((st.code_m + 1) * 1024 + t2[0].numel() * 4))
+        print(f"[gkernel] main-path gran={gran} B={B} slots={nslots} lane "
+              f"fill {valid / dists.numel():.3f}, unpruned lanes "
+              f"{kept / max(valid, 1):.3f} of filled: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s of codes+output+tables), plain "
+              f"{plain_ms:.4f} ms, max_abs_err {err!r}", flush=True)
+        print(f"[glayers] gran={gran} B={B} ms " + json.dumps(
+            {k: round(v, 4) for k, v in layers.items()}), flush=True)
+        kernels.append({"name": f"grouping_scan_slots_gran{gran}",
+                        "route": "cuda", "source": GROUPING_SOURCE,
+                        "replaces": GROUPING_KERNELS[gran],
+                        "launches": launches[gran], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms})
     return kernels
 
 

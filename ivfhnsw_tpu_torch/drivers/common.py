@@ -112,8 +112,6 @@ def check_supported(cfg: RunConfig) -> None:
         raise NotImplementedError(
             f"file-backed runs are not ported yet (got {', '.join(paths)}); "
             "use -synthetic SEED")
-    if cfg.index.do_opq:
-        raise NotImplementedError("OPQ is not ported yet")
 
 
 def setup_quantizer(index, cfg: RunConfig, ds,
@@ -153,18 +151,40 @@ def load_or_assign(index, cfg: RunConfig, ds) -> np.ndarray:
     return np.concatenate(chunks)
 
 
-def build_or_read_index(index, cfg: RunConfig, ds, idxs) -> None:
-    """Add loop + finalize (test_ivfhnsw_sift1b.cpp:125-162)."""
+def build_or_read_index(index, cfg: RunConfig, ds, idxs,
+                        grouping: bool = False) -> dict:
+    """Add loop + finalize (test_ivfhnsw_sift1b.cpp:125-162). The grouping
+    construction (test_ivfhnsw_grouping_sift1b.cpp:136-200) first sweeps
+    the neighbour centroids and streams the alpha pass over the base set;
+    after finalize it recomputes the inter-centroid distances directly,
+    and search uses those. Returns the seconds of each stage ("alpha_pass"
+    with grouping, "add", "finalize"), the device synced at each end."""
+    stages = {}
     w = StopW()
+    if grouping:
+        index.compute_neighbor_centroids()
+        log("alpha pass ...")
+        for off, batch in io.prefetch(ds.base_batches()):
+            index.alpha_pass(batch, idxs[off:off + batch.shape[0]])
+        index.finalize_alphas()
+        _sync(index.device)
+        stages["alpha_pass"] = w.elapsed_s()
+        log(f"alphas learned in {stages['alpha_pass']:.1f}s")
     log("adding base vectors ...")
     for off, batch in io.prefetch(ds.base_batches()):
         n = batch.shape[0]
         index.add_batch(batch, np.arange(off, off + n, dtype=np.int32),
                         idxs[off:off + n] if idxs is not None else None)
         log(f"  added {off + n}/{ds.total_base} [{w.elapsed_s():.1f}s]")
-    index.finalize()
     _sync(index.device)
+    stages["add"] = w.elapsed_s() - sum(stages.values())
+    index.finalize()
+    if grouping:
+        index.compute_inter_centroid_dists()
+    _sync(index.device)
+    stages["finalize"] = w.elapsed_s() - sum(stages.values())
     log(f"index built in {w.elapsed_s():.1f}s")
+    return stages
 
 
 def eval_search(index, cfg: RunConfig, ds, search_fn=None) -> dict:

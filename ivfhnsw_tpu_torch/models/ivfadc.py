@@ -3,8 +3,8 @@
 reference's ``ivfhnsw::IndexIVF_HNSW``).
 
 Ported so far: the build path (``train_centroids``/``set_centroids``,
-``assign``, ``train_pq`` without OPQ, ``add_batch`` + ``finalize``) and
-``search`` with engines
+``assign``, ``train_pq`` with or without OPQ, ``add_batch`` + ``finalize``)
+and ``search`` with engines
 
 - ``"torch"`` — the portable gather + top-k path (``ops.adc``), counterpart
   of the JAX ``"xla"`` engine and the oracle for the fused one;
@@ -29,6 +29,8 @@ from ivfhnsw_tpu_torch.ops import adc as adc_ops
 from ivfhnsw_tpu_torch.ops.cuda import adc_scan as fused
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu_torch.ops.kmeans import kmeans
+from ivfhnsw_tpu_torch.ops.opq import (apply_rotation,
+                                       apply_rotation_transpose, train_opq)
 from ivfhnsw_tpu_torch.ops.pq import (ENCODE_ROWS, NormQuantizer,
                                       ProductQuantizer, _pq_ip_luts)
 from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
@@ -49,17 +51,17 @@ class IVFADCIndex:
     with flat posting lists."""
 
     def __init__(self, config: IndexConfig, device):
-        if config.do_opq:
-            raise NotImplementedError("OPQ is not ported yet")
         self.config = config.validate()
         self.device = torch.device(device)
         self.d = config.d
         self.nc = config.nc
+        self.do_opq = config.do_opq
 
         self.centroids: torch.Tensor | None = None       # [nc, d] f32
         self.centroid_norms: torch.Tensor | None = None  # [nc] f32
         self.pq = ProductQuantizer(config.d, config.pq_m, config.ksub)
         self.norm_pq = NormQuantizer(config.ksub)
+        self.opq_R: torch.Tensor | None = None           # [d, d] f32
         self.builder = PostingListBuilder(config.nc, config.pq_m)
         self.store: PostingListStore | None = None
 
@@ -74,19 +76,21 @@ class IVFADCIndex:
     @classmethod
     def from_numpy_state(cls, config: IndexConfig, centroids, codebooks,
                          norm_centroids, codes, ids, norm_codes, list_offsets,
-                         device) -> "IVFADCIndex":
+                         device, opq_R=None) -> "IVFADCIndex":
         """Build an index from another index's arrays, given as numpy:
         centroids [nc, d], PQ codebooks [M, 256, dsub], norm-PQ centroids
-        [256] and the store's flat codes / ids / norm_codes / list_offsets
-        (e.g. ``np.asarray`` of the JAX package's ``IVFADCIndex`` fields).
-        The builder is seeded from the store, so later ``add_batch`` +
-        ``finalize`` calls extend it."""
+        [256], the store's flat codes / ids / norm_codes / list_offsets and,
+        with OPQ, the rotation R [d, d] (e.g. ``np.asarray`` of the JAX
+        package's ``IVFADCIndex`` fields). The builder is seeded from the
+        store, so later ``add_batch`` + ``finalize`` calls extend it."""
         idx = cls(config, device)
         idx.set_centroids(centroids)
         idx.pq.codebooks = idx._tensor(codebooks)
         idx.norm_pq.centroids = idx._tensor(norm_centroids)
+        if opq_R is not None:
+            idx.opq_R = idx._tensor(opq_R)
         offsets = np.asarray(list_offsets, np.int64)
-        keys = np.repeat(np.arange(config.nc, dtype=np.int32),
+        keys = np.repeat(np.arange(len(offsets) - 1, dtype=np.int32),
                          np.diff(offsets))
         idx.builder.add(keys, ids, codes, norm_codes)
         idx.finalize()
@@ -102,6 +106,12 @@ class IVFADCIndex:
         if isinstance(keys, torch.Tensor):
             return keys.to(device=self.device, dtype=torch.int64)
         return torch.tensor(np.asarray(keys, np.int64), device=self.device)
+
+    def _keys_for(self, x: torch.Tensor, precomputed_idx) -> torch.Tensor:
+        """Centroid ids of device rows x: ``precomputed_idx`` when given,
+        else nearest-centroid assignment."""
+        return (self._keys(precomputed_idx) if precomputed_idx is not None
+                else self._assign_t(x))
 
     # ------------------------------------------------------------------
     # Quantizer setup
@@ -161,46 +171,78 @@ class IVFADCIndex:
             self._keys(keys)]
 
     def train_pq(self, generator: torch.Generator, train_data,
-                 precomputed_idx=None, pq_niter: int = 25) -> None:
-        """train_pq equivalent (IndexIVF_HNSW.cpp:536-593) without OPQ:
-        assign, residuals, PQ, then norm-PQ on the reconstructions' norms."""
+                 precomputed_idx=None, pq_niter: int = 25,
+                 opq_niter: int = 20) -> None:
+        """train_pq equivalent (IndexIVF_HNSW.cpp:536-593): assign,
+        residuals, [OPQ], PQ, then norm-PQ on the reconstructions' norms."""
         x = self._tensor(train_data)
-        keys = (self._keys(precomputed_idx) if precomputed_idx is not None
-                else self._assign_t(x))
-        residuals = self.compute_residuals(x, keys)
-        self.pq.train(generator, residuals, niter=pq_niter)
-        recon = self.reconstruct(self.pq.decode(self.pq.encode(residuals)),
-                                 keys)
+        keys = self._keys_for(x, precomputed_idx)
+        self._train_quantizers(generator, self.compute_residuals(x, keys),
+                               self.centroids[keys], pq_niter, opq_niter)
+
+    def _train_quantizers(self, generator: torch.Generator,
+                          residuals: torch.Tensor, base: torch.Tensor,
+                          pq_niter: int, opq_niter: int) -> None:
+        """[OPQ rotation +] PQ on ``residuals``, then the norm quantizer on
+        the norms of the reconstructions decoded + ``base``."""
+        if self.do_opq:
+            self.opq_R, self.pq = train_opq(
+                generator, residuals, self.config.pq_m, niter=opq_niter,
+                final_pq_niter=pq_niter, ksub=self.config.ksub)
+        else:
+            self.pq.train(generator, residuals, niter=pq_niter)
+        recon = self._decode(self.pq.encode(self._rotate(residuals))) + base
         self.norm_pq.train(generator, (recon * recon).sum(dim=1))
+
+    def _rotate(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ R.T under OPQ (residuals before PQ, queries before their
+        LUTs); x itself otherwise."""
+        if not self.do_opq:
+            return x
+        if self.opq_R is None:
+            raise RuntimeError("OPQ index has no rotation: call train_pq "
+                               "first")
+        return apply_rotation(x, self.opq_R)
+
+    def _decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """PQ decode, rotated back to the original space under OPQ."""
+        decoded = self.pq.decode(codes)
+        if self.do_opq:
+            decoded = apply_rotation_transpose(decoded, self.opq_R)
+        return decoded
 
     # ------------------------------------------------------------------
     # Adding vectors
     # ------------------------------------------------------------------
 
     def _encode_batch(self, x: torch.Tensor, keys: torch.Tensor):
-        """residual -> PQ -> decode -> reconstruct -> norm code
-        (IndexIVF_HNSW.cpp:87-121), in pieces of ENCODE_ROWS rows. Returns
-        (codes [n, M] u8, norm_codes [n] u8) on the device."""
+        """Codes of x [n, d] against the centroids of ``keys``, in pieces of
+        ENCODE_ROWS rows. Returns (codes [n, M] u8, norm_codes [n] u8) on
+        the device."""
         n = x.shape[0]
         codes = torch.empty((n, self.config.pq_m), dtype=torch.uint8,
                             device=self.device)
         norm_codes = torch.empty(n, dtype=torch.uint8, device=self.device)
         for s in range(0, n, ENCODE_ROWS):
-            xs, ks = x[s:s + ENCODE_ROWS], keys[s:s + ENCODE_ROWS]
-            c = self.pq.encode(self.compute_residuals(xs, ks))
-            recon = self.reconstruct(self.pq.decode(c), ks)
-            codes[s:s + ENCODE_ROWS] = c
-            norm_codes[s:s + ENCODE_ROWS] = self.norm_pq.encode(
-                (recon * recon).sum(dim=1))
+            base = self.centroids[keys[s:s + ENCODE_ROWS]]
+            codes[s:s + ENCODE_ROWS], norm_codes[s:s + ENCODE_ROWS] = (
+                self._encode(x[s:s + ENCODE_ROWS], base))
         return codes, norm_codes
+
+    def _encode(self, x: torch.Tensor, base: torch.Tensor):
+        """residual against ``base`` -> [rotate] -> PQ -> decode ->
+        [unrotate] -> reconstruct -> norm code (IndexIVF_HNSW.cpp:87-121).
+        Returns (codes [n, M] u8, norm_codes [n] u8)."""
+        codes = self.pq.encode(self._rotate(x - base))
+        recon = self._decode(codes) + base
+        return codes, self.norm_pq.encode((recon * recon).sum(dim=1))
 
     def add_batch(self, x, xids=None, precomputed_idx=None) -> None:
         """add_batch equivalent (IndexIVF_HNSW.cpp:75-138). Call finalize()
         after the last batch."""
         x = self._tensor(x)
         n = x.shape[0]
-        keys = (self._keys(precomputed_idx) if precomputed_idx is not None
-                else self._assign_t(x))
+        keys = self._keys_for(x, precomputed_idx)
         if xids is None:
             xids = np.arange(self.builder.ntotal, self.builder.ntotal + n,
                              dtype=np.int32)
@@ -291,7 +333,7 @@ class IVFADCIndex:
         qc_dists, probes = streaming_topk_l2(
             q, self.centroids, nprobe, block=COARSE_BLOCK,
             point_sqnorms=self.centroid_norms)
-        luts = _pq_ip_luts(q, self.pq.codebooks)
+        luts = _pq_ip_luts(self._rotate(q), self.pq.codebooks)
         pos, seg, valid, _ = adc_ops.probe_positions(
             probes, store.list_offsets_t, params.max_codes, L)
         g_norm = self.norm_pq.centroids[store.norm_codes_t[pos].long()]
@@ -301,6 +343,24 @@ class IVFADCIndex:
         labels = torch.gather(store.ids_t[pos], 1, sel).long()
         return dists, torch.where(torch.isfinite(dists), labels, -1)
 
+    def _search_fused(self, q: torch.Tensor, params: SearchParams,
+                      nprobe: int, nslots: int, gran: int,
+                      exact_reduce: str):
+        """Fused engine: ``ops.cuda.adc_scan.search_core``."""
+        store = self.store
+        return fused.search_core(
+            q, self.centroids, self.centroid_norms, self.pq.codebooks,
+            self.norm_pq.centroids, store.codes_t, store.ids_t,
+            store.norm_codes_t, store.list_offsets_t, params.max_codes,
+            nprobe=nprobe, k=params.k, nslots=nslots, gran=gran,
+            coarse_block=self._coarse_block_for(q.shape[0]),
+            exact_reduce=exact_reduce,
+            lut_queries=self._rotate(q))
+
+    def _default_params(self) -> SearchParams:
+        return SearchParams(k=10, nprobe=self.nprobe,
+                            max_codes=self.max_codes)
+
     def search(self, queries, params: SearchParams | None = None,
                batch: int = 8192):
         """Batched query search, ``batch`` queries per pass. Returns
@@ -308,9 +368,8 @@ class IVFADCIndex:
         where fewer than k codes were scanned. (The JAX package caps its
         kernel batch at 1024 for TPU scalar memory; nothing here needs
         that cap.)"""
-        params = params or SearchParams(k=10, nprobe=self.nprobe,
-                                        max_codes=self.max_codes)
-        store = self._ensure_store()
+        params = params or self._default_params()
+        self._ensure_store()
         q_all = self._tensor(queries)
         nprobe = min(params.nprobe, self.nc)
         engine = self._resolve_engine()
@@ -325,14 +384,8 @@ class IVFADCIndex:
             if engine == "torch":
                 d, l = self._search_torch(q, params, nprobe, L)
             else:
-                d, l = fused.search_core(
-                    q, self.centroids, self.centroid_norms,
-                    self.pq.codebooks, self.norm_pq.centroids, store.codes_t,
-                    store.ids_t, store.norm_codes_t, store.list_offsets_t,
-                    params.max_codes, nprobe=nprobe, k=params.k,
-                    nslots=nslots, gran=gran,
-                    coarse_block=self._coarse_block_for(q.shape[0]),
-                    exact_reduce=exact_reduce)
+                d, l = self._search_fused(q, params, nprobe, nslots, gran,
+                                          exact_reduce)
             out_d.append(d)
             out_l.append(l)
         return (torch.cat(out_d).cpu().numpy(),

@@ -14,6 +14,11 @@ engines read device tensors of the same arrays, uploaded once per store.
 The scan kernel reads ``codes`` and ``norm_codes`` in place, so the store
 has no tiled or list-aligned copy (the JAX package's ``tiled()``/``quad()``
 are TPU DMA formats).
+
+The grouping index stores ``nc * nsubc`` lists in (centroid, subcentroid)
+order; :meth:`PostingListStore.grouped` gives its group-level view
+(:class:`GroupedView`), the counterpart of the subcentroid rows of the JAX
+package's ``tiled_grouped``/``quad_grouped`` tiles.
 """
 
 from __future__ import annotations
@@ -68,6 +73,50 @@ class PostingListStore:
     def max_list_size(self) -> int:
         s = self.list_sizes()
         return int(s.max()) if s.size else 0
+
+    def grouped(self, nsubc: int) -> "GroupedView":
+        """The group-level view of a grouping index's store (its lists are
+        nc * nsubc subgroups in (centroid, subc) order); built once."""
+        view = getattr(self, "_grouped", None)
+        if view is None or view.nsubc != nsubc:
+            view = self._grouped = GroupedView.of(self, nsubc)
+        return view
+
+
+@dataclass
+class GroupedView:
+    """A store of nc * nsubc subgroup lists seen as nc groups, each group
+    contiguous in the flat arrays with its subgroups in subc order:
+
+        group_offsets_t [nc+1]     int64  group g = rows [off[g], off[g+1])
+        sub_sizes_t     [nc, nsubc] int64 codes per subgroup
+        subc_t          [N]        uint8  each code's subcentroid index
+
+    ``group_sizes`` is the host array of codes per group. nsubc <= 256, so a
+    subcentroid index fits one byte."""
+
+    nsubc: int
+    group_sizes: np.ndarray
+    group_offsets_t: torch.Tensor
+    sub_sizes_t: torch.Tensor
+    subc_t: torch.Tensor
+
+    @classmethod
+    def of(cls, store: PostingListStore, nsubc: int) -> "GroupedView":
+        if not 0 < nsubc <= 256:
+            raise ValueError(f"nsubc={nsubc} outside [1, 256]")
+        if store.nc % nsubc:
+            raise ValueError(f"store of {store.nc} lists is not "
+                             f"nc * nsubc with nsubc={nsubc}")
+        off = store.list_offsets.astype(np.int64)
+        sub_sizes = np.diff(off).reshape(-1, nsubc)
+        subc = (np.repeat(np.arange(store.nc), np.diff(off))
+                % nsubc).astype(np.uint8)
+        dev = store.device
+        return cls(nsubc=nsubc, group_sizes=sub_sizes.sum(axis=1),
+                   group_offsets_t=torch.tensor(off[::nsubc], device=dev),
+                   sub_sizes_t=torch.tensor(sub_sizes, device=dev),
+                   subc_t=torch.tensor(subc, device=dev))
 
 
 class PostingListBuilder:

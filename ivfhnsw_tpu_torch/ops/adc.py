@@ -32,21 +32,33 @@ def probe_positions(probes: torch.Tensor, list_offsets: torch.Tensor,
              seg [B, L] int64 — which probe slot each position belongs to,
              valid [B, L] bool,
              included [B, nprobe] bool — which probes made the budget)."""
-    B, nprobe = probes.shape
     off = list_offsets.long()
     p = probes.long()
     sizes = off[p + 1] - off[p]                               # [B, P]
     cum_before = torch.cumsum(sizes, dim=1) - sizes
     included = (cum_before < max_codes) | (max_codes <= 0)
-    eff = sizes * included
-    bounds = torch.cumsum(eff, dim=1)                         # [B, P]
-    starts = bounds - eff
-    j = torch.arange(L, device=probes.device).expand(B, L).contiguous()
-    seg = torch.searchsorted(bounds, j, right=True).clamp_max(nprobe - 1)
+    pos, seg, valid = window_positions(p, sizes * included, off, L)
+    return pos, seg, valid, included
+
+
+def window_positions(lists: torch.Tensor, sizes: torch.Tensor,
+                     list_offsets: torch.Tensor, L: int):
+    """Fixed-length scan window over the first ``sizes[b, i]`` codes of
+    list ``lists[b, i]``, lists taken in order. lists, sizes [B, n] int64;
+    list_offsets [nlists + 1] int64.
+
+    Returns (pos [B, L] int64 into the flat code arrays, 0 where invalid,
+             seg [B, L] int64 — the index i each position belongs to,
+             valid [B, L] bool)."""
+    B, n = lists.shape
+    bounds = torch.cumsum(sizes, dim=1)                       # [B, n]
+    starts = bounds - sizes
+    j = torch.arange(L, device=lists.device).expand(B, L).contiguous()
+    seg = torch.searchsorted(bounds, j, right=True).clamp_max(n - 1)
     within = j - torch.gather(starts, 1, seg)
-    pos = off[torch.gather(p, 1, seg)] + within
+    pos = list_offsets[torch.gather(lists, 1, seg)] + within
     valid = j < bounds[:, -1:]
-    return torch.where(valid, pos, 0), seg, valid, included
+    return torch.where(valid, pos, 0), seg, valid
 
 
 def adc_scan(luts: torch.Tensor, codes: torch.Tensor, bias: torch.Tensor,

@@ -59,18 +59,35 @@ def probe_schedule(probes: torch.Tensor, qc_dists: torch.Tensor,
     Returns (start [B, nslots] int64 — first code row of the slot,
              len [B, nslots] int32 — codes in the slot (<= gran; 0 = empty),
              bias [B, nslots] f32 — term1 = qc_dist - ||c||^2 of its probe)."""
-    B, P = probes.shape
     off = list_offsets.long()
     p = probes.long()
     lo = off[p]
     sizes = off[p + 1] - lo                                   # [B, P]
-    term1 = qc_dists - centroid_norms[p]
     cum_before = torch.cumsum(sizes, dim=1) - sizes
     included = (cum_before < max_codes) | (max_codes <= 0)
+    start, ln, bias, _ = slot_schedule(lo, sizes, included,
+                                       qc_dists - centroid_norms[p], nslots,
+                                       gran)
+    return start, ln, bias
+
+
+def slot_schedule(lo: torch.Tensor, sizes: torch.Tensor,
+                  included: torch.Tensor, term1: torch.Tensor, nslots: int,
+                  gran: int):
+    """Lay the windows of each query's included probes, in probe order,
+    into ``nslots`` slots of ``gran`` codes: probe p's window (rows
+    [lo, lo + sizes) of the flat store) takes ceil(sizes / gran)
+    consecutive slots when included[p]. lo, sizes [B, P] int64; included
+    [B, P] bool; term1 [B, P] f32.
+
+    Returns (start [B, nslots] int64, len [B, nslots] int32 (0 = empty),
+    bias [B, nslots] f32 = term1 of the slot's probe, seg [B, nslots] int32
+    = the slot's probe index); every field is 0 in an empty slot."""
+    B, P = sizes.shape
     tcnt = torch.where(included, (sizes + gran - 1) // gran, 0)
     bounds = torch.cumsum(tcnt, dim=1)
     first = bounds - tcnt                                     # first slot
-    j = torch.arange(nslots, device=probes.device).expand(B, nslots)
+    j = torch.arange(nslots, device=sizes.device).expand(B, nslots)
     pi = torch.searchsorted(bounds, j.contiguous(), right=True)
     pi = pi.clamp_max(P - 1)
     valid = j < bounds[:, -1:]
@@ -80,7 +97,8 @@ def probe_schedule(probes: torch.Tensor, qc_dists: torch.Tensor,
     bias = torch.gather(term1, 1, pi)
     return (torch.where(valid, start, 0),
             torch.where(valid, ln, 0).to(torch.int32),
-            torch.where(valid, bias, 0.0))
+            torch.where(valid, bias, 0.0),
+            torch.where(valid, pi, 0).to(torch.int32))
 
 
 def adc_scan_slots_plain(lut: torch.Tensor, norm_tab: torch.Tensor,
@@ -116,18 +134,18 @@ def _kernel():
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+           device: torch.device, fn: str = "adc_scan_slots") -> None:
+    """Raise unless ``t`` has the device, dtype, shape and contiguity that
+    kernel wrapper ``fn`` passes to its kernel."""
     if t.device != device:
-        raise ValueError(f"adc_scan_slots: {name} on {t.device}, "
-                         f"expected {device}")
+        raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"adc_scan_slots: {name} is {t.dtype}, "
-                        f"expected {dtype}")
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"adc_scan_slots: {name} has shape "
-                         f"{tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"adc_scan_slots: {name} is not contiguous")
+        raise ValueError(f"{fn}: {name} is not contiguous")
 
 
 def adc_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
@@ -185,19 +203,31 @@ def search_core(queries: torch.Tensor, centroids: torch.Tensor,
                 ids: torch.Tensor, norm_codes: torch.Tensor,
                 list_offsets: torch.Tensor, max_codes: int, *, nprobe: int,
                 k: int, nslots: int, gran: int, coarse_block: int,
-                exact_reduce: str = "topk"):
+                exact_reduce: str = "topk",
+                lut_queries: torch.Tensor | None = None):
     """End-to-end IVFADC search of a query batch on the fused engine.
-    Returns (dists [B, k] f32 ascending, labels [B, k] int64, -1 where the
-    distance is +inf)."""
+    ``lut_queries`` (the OPQ-rotated queries) replaces ``queries`` for the
+    LUTs; coarse selection stays in the original space. Returns
+    (dists [B, k] f32 ascending, labels [B, k] int64, -1 where the distance
+    is +inf)."""
     qc_dists, probes = streaming_topk_l2(
         queries, centroids, nprobe, block=coarse_block,
         point_sqnorms=centroid_norms, exact_reduce=exact_reduce)
     start, length, bias = probe_schedule(probes, qc_dists, centroid_norms,
                                          list_offsets, max_codes, nslots,
                                          gran)
-    lut = build_luts(queries, codebooks)
+    lut = build_luts(queries if lut_queries is None else lut_queries,
+                     codebooks)
     dists = adc_scan_slots(lut, norm_centroids, codes, norm_codes, start,
                            length, bias, gran)
+    return topk_labels(dists, start, ids, k, gran)
+
+
+def topk_labels(dists: torch.Tensor, start: torch.Tensor, ids: torch.Tensor,
+                k: int, gran: int):
+    """Bin-32 top-k of the scan output [B, nslots*gran] and id resolution
+    through the slots' start rows. Returns (dists [B, k] ascending,
+    labels [B, k] int64, -1 where the distance is +inf)."""
     best, sel = binned_topk_smallest(dists, k, bin_size=32)
     finite = torch.isfinite(best)
     pos = torch.gather(start, 1, sel // gran) + sel % gran

@@ -51,21 +51,37 @@ def library_path(name: str) -> str:
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the
     library path. Raises with the compiler's output when nvcc fails."""
-    so = library_path(name)
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    with open(so[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src} (rc {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    return so
+    return build_all([name])[0]
+
+
+def build_all(names) -> list[str]:
+    """Compile every ``csrc/<name>.cu`` whose library does not exist yet,
+    one nvcc process per source, all started together; return the library
+    paths in order. Raises with the compiler's output when nvcc fails."""
+    sos = [library_path(n) for n in names]
+    jobs = []
+    for name, so in zip(names, sos):
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.tmp{os.getpid()}"
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        log = open(so[:-3] + ".log", "w")
+        jobs.append((so, tmp, src, log, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=log,
+            stderr=subprocess.STDOUT)))
+    failed = []
+    for so, tmp, src, log, proc in jobs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            with open(so[:-3] + ".log") as f:
+                failed.append(f"nvcc failed on {src} (rc {rc}):\n{f.read()}")
+        else:
+            os.replace(tmp, so)  # atomic: a loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return sos
 
 
 @functools.lru_cache(maxsize=None)

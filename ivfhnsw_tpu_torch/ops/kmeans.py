@@ -10,6 +10,10 @@ Random draws come from an explicit ``torch.Generator`` on the data's device
 different numbers from the same seed, so their centroids are compared by
 quantization error, not bit for bit.
 
+Cluster sums go through :func:`ivfhnsw_tpu_torch.ops.segment.segment_sum`,
+whose order of summation is fixed by the data, so one generator seed gives
+the same centroids, bit for bit, on every run on the card.
+
 Only the k <= 8192 seeding (k-means++) is ported; ``hierarchical_seed``,
 which the JAX package uses above 8192 centroids, is not yet.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ivfhnsw_tpu_torch.ops.distances import assign_top1, l2sqr_pairwise
+from ivfhnsw_tpu_torch.ops.segment import segment_sum
 
 KMEANSPP_MAX_K = 8192
 
@@ -75,6 +80,15 @@ def _update_with_split(sums: torch.Tensor, counts: torch.Tensor,
     return torch.where(nonempty.unsqueeze(-1), means, cand)
 
 
+def _sums_and_counts(x: torch.Tensor, idx: torch.Tensor, k: int):
+    """Per-cluster sums [k, d] and counts [k] of rows x [n, d] assigned to
+    idx [n], in one deterministic segment sum (a ones column carries the
+    counts)."""
+    ones = torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)
+    acc = segment_sum(torch.cat([x, ones], dim=1), idx, k)
+    return acc[:, :-1], acc[:, -1]
+
+
 def _lloyd_pass(data: torch.Tensor, centroids: torch.Tensor, block_n: int):
     """One assignment pass over data [n, d] in blocks of ``block_n`` rows.
     Returns (sums [k, d], counts [k], sse)."""
@@ -87,8 +101,9 @@ def _lloyd_pass(data: torch.Tensor, centroids: torch.Tensor, block_n: int):
     for s in range(0, data.shape[0], block_n):
         blk = data[s:s + block_n]
         dist, idx = assign_top1(blk, centroids, point_sqnorms=csq)
-        sums.index_add_(0, idx, blk)
-        counts.index_add_(0, idx, torch.ones_like(dist))
+        blk_sums, blk_counts = _sums_and_counts(blk, idx, k)
+        sums += blk_sums
+        counts += blk_counts
         sse += dist.sum()
     return sums, counts, sse
 
@@ -120,23 +135,24 @@ def kmeans(generator: torch.Generator, data: torch.Tensor, k: int,
 
 
 def kmeans_batched(generator: torch.Generator, data: torch.Tensor, k: int,
-                   niter: int = 25):
+                   niter: int = 25, init: torch.Tensor | None = None):
     """Lloyd's k-means over B independent problems, data [B, n, d] ->
-    centroids [B, k, d]."""
+    centroids [B, k, d]. ``init`` [B, k, d] warm-starts it (the OPQ
+    alternation retrains PQ a few iterations per rotation update) and skips
+    the seeding draw."""
     data = data.float()
     B, n, d = data.shape
-    centroids = kmeanspp_init(generator, data[:, :min(n, max(4 * k, 4096))],
-                              k)
+    if init is None:
+        centroids = kmeanspp_init(generator,
+                                  data[:, :min(n, max(4 * k, 4096))], k)
+    else:
+        centroids = init.float()
     base = (torch.arange(B, device=data.device) * k)[:, None]
     flat_x = data.reshape(B * n, d)
-    ones = torch.ones(B * n, dtype=torch.float32, device=data.device)
     for _ in range(niter):
         idx = l2sqr_pairwise(data, centroids).argmin(dim=-1)    # [B, n]
-        flat = (idx + base).reshape(-1)
-        sums = torch.zeros((B * k, d), dtype=torch.float32,
-                           device=data.device).index_add_(0, flat, flat_x)
-        counts = torch.zeros((B * k,), dtype=torch.float32,
-                             device=data.device).index_add_(0, flat, ones)
+        sums, counts = _sums_and_counts(flat_x, (idx + base).reshape(-1),
+                                        B * k)
         centroids = _update_with_split(sums.view(B, k, d),
                                        counts.view(B, k), centroids)
     return centroids

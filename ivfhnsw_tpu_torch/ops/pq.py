@@ -61,12 +61,13 @@ class ProductQuantizer:
         self.codebooks: torch.Tensor | None = None  # [M, ksub, dsub]
 
     def train(self, generator: torch.Generator, data: torch.Tensor,
-              niter: int = 25):
-        """data [n, d] on the device: k-means per subspace, all M batched."""
+              niter: int = 25, init: torch.Tensor | None = None):
+        """data [n, d] on the device: k-means per subspace, all M batched;
+        ``init`` [M, ksub, dsub] warm-starts it from earlier codebooks."""
         n = data.shape[0]
         sub = data.float().reshape(n, self.M, self.dsub).transpose(0, 1)
         self.codebooks = kmeans_batched(generator, sub.contiguous(),
-                                        self.ksub, niter=niter)
+                                        self.ksub, niter=niter, init=init)
         return self
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:

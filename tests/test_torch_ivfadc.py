@@ -5,8 +5,10 @@ A JAX index is built and carried across with ``from_numpy_state``; the
 port's ``search`` (engines "torch" and "fused", both slot widths) must
 match JAX's "xla" and "pallas_interpret" (chunk and quad) engines within
 the cross-engine contract of tests/test_pallas_adc.py:42-46 (rtol=1e-4,
-atol=1e-3; labels may differ only where distances tie). The port's own
-build from JAX's quantizers must give bit-equal store arrays.
+atol=1e-3; labels may differ only where distances tie), without and with
+OPQ. The port's own build from JAX's quantizers must give bit-equal store
+arrays (under OPQ a norm code may differ only where the reconstruction's
+norm is a near-tie between two norm centroids, which the test shows).
 """
 
 import os
@@ -100,6 +102,72 @@ def test_search_matches_jax(built, jax_search, p, port, ref):
     assert_same(np.asarray(d1), np.asarray(l1), d2, l2)
 
 
+@pytest.fixture(scope="module")
+def built_opq(built):
+    """A JAX IVFADC index with OPQ over the same corpus."""
+    _, base, queries = built
+    j = JaxIndex(JaxConfig(do_opq=True, **CFG))
+    j.set_centroids(np.asarray(built[0].centroids))
+    j.train_pq(jax.random.PRNGKey(1), base[:4000], pq_niter=5, opq_niter=3)
+    j.add_batch(base, np.arange(len(base), dtype=np.int32))
+    j.finalize()
+    return j, base, queries
+
+
+@pytest.mark.parametrize("port", [("torch", "auto"), ("fused", "chunk"),
+                                  ("fused", "quad")],
+                         ids=lambda x: "-".join(x))
+def test_search_opq_matches_jax(built_opq, port):
+    """OPQ rotation carried across: LUTs from the rotated queries in both
+    engines, coarse selection in the original space."""
+    j, _, queries = built_opq
+    st = j.store
+    t = IVFADCIndex.from_numpy_state(
+        IndexConfig(do_opq=True, **CFG), np.asarray(j.centroids),
+        np.asarray(j.pq.codebooks), np.asarray(j.norm_pq.centroids),
+        st.codes, st.ids, st.norm_codes, st.list_offsets, "cpu",
+        opq_R=np.asarray(j.opq_R))
+    t.engine, t.scan_layout = port
+    p = PARAMS[1]
+    j.engine = "xla"
+    try:
+        d1, l1 = j.search(queries, JaxParams(**p))
+    finally:
+        j.engine = "auto"
+    d2, l2 = t.search(queries, SearchParams(**p))
+    assert_same(np.asarray(d1), np.asarray(l1), d2, l2)
+
+
+def test_own_opq_build_bit_equal_store(built_opq):
+    """add_batch under OPQ (rotate, encode, unrotate, norm code) from JAX's
+    rotation and quantizers reproduces JAX's store bit for bit."""
+    j, base, _ = built_opq
+    t = IVFADCIndex(IndexConfig(do_opq=True, **CFG), "cpu")
+    t.set_centroids(np.asarray(j.centroids))
+    t.opq_R = torch.tensor(np.asarray(j.opq_R))
+    t.pq.codebooks = torch.tensor(np.asarray(j.pq.codebooks))
+    t.norm_pq.centroids = torch.tensor(np.asarray(j.norm_pq.centroids))
+    t.add_batch(base, np.arange(len(base), dtype=np.int32))
+    t.finalize()
+    for name in ("codes", "ids", "list_offsets"):
+        np.testing.assert_array_equal(getattr(t.store, name),
+                                      getattr(j.store, name), err_msg=name)
+    # The unrotation is a matmul that rounds differently in the two
+    # packages: a norm code may differ only where the reconstruction's norm
+    # (float64) is a near-tie between the two norm centroids.
+    tn, jn = t.store.norm_codes, np.asarray(j.store.norm_codes)
+    cents = np.asarray(j.norm_pq.centroids, np.float64)
+    st = j.store
+    keys = np.repeat(np.arange(CFG["nc"]), np.diff(st.list_offsets))
+    cb = np.asarray(j.pq.codebooks, np.float64)
+    for r in np.nonzero(tn != jn)[0]:
+        dec = cb[np.arange(cb.shape[0]), st.codes[r]].reshape(-1)
+        rec = dec @ np.asarray(j.opq_R, np.float64) + np.asarray(
+            j.centroids, np.float64)[keys[r]]
+        n = float(rec @ rec)
+        assert abs(abs(n - cents[tn[r]]) - abs(n - cents[jn[r]])) <= 1e-5 * n
+
+
 def test_search_batches_and_auto_engine(built, jax_search):
     """Several query batches and engine "auto" (= fused) give the one-batch
     result."""
@@ -173,8 +241,15 @@ def test_port_trained_index_quality(built):
 def test_unported_options_raise(built, bad):
     j, _, queries = built
     if bad == "opq":
+        # OPQ itself is ported; its rotation's file format is not, and an
+        # OPQ index without a trained rotation refuses to encode.
         with pytest.raises(NotImplementedError):
-            IVFADCIndex(IndexConfig(do_opq=True, **CFG), "cpu")
+            ivfadc_eval.main(["-synthetic", "0", "-device", "cpu",
+                              "-do_opq", "on", "-path_opq_matrix", "x.opq"])
+        t = IVFADCIndex(IndexConfig(do_opq=True, **CFG), "cpu")
+        t.set_centroids(np.asarray(j.centroids))
+        with pytest.raises(RuntimeError):
+            t.add_batch(queries)
         return
     t = _carry(j)
     p = SearchParams(k=5, nprobe=4, max_codes=0)
@@ -213,7 +288,8 @@ def test_driver_refuses_unported_flags(argv):
 
 def test_import_leaves_jax_out():
     code = ("import sys, ivfhnsw_tpu_torch, ivfhnsw_tpu_torch.drivers."
-            "ivfadc_eval, ivfhnsw_tpu_torch.ops.cuda.build; "
+            "ivfadc_eval, ivfhnsw_tpu_torch.drivers.grouping_eval, "
+            "ivfhnsw_tpu_torch.ops.cuda.build, ivfhnsw_tpu_torch.ops.opq; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'ivfhnsw_tpu' not in sys.modules")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -6,7 +6,9 @@ Tolerances: distances and top-k values rtol=1e-4, atol=1e-3 (the cross-
 engine contract of tests/test_pallas_adc.py:42-46); integer outputs (codes,
 indices on tie-free inputs) bit-equal; trained quantizers by quality, since
 the two packages draw random numbers differently: the port's k-means MSE
-within 5% of JAX's on the same data.
+within 5% of JAX's on the same data, and likewise the OPQ + PQ
+reconstruction MSE; rotations orthogonal within 1e-5 and applied within
+rtol=1e-5, atol=1e-5.
 """
 
 import jax
@@ -17,10 +19,12 @@ import torch
 
 from ivfhnsw_tpu.ops import distances as jd
 from ivfhnsw_tpu.ops import kmeans as jk
+from ivfhnsw_tpu.ops import opq as jopq
 from ivfhnsw_tpu.ops import pq as jpq
 from ivfhnsw_tpu.ops import topk as jt
 from ivfhnsw_tpu_torch.ops import distances as td
 from ivfhnsw_tpu_torch.ops import kmeans as tk
+from ivfhnsw_tpu_torch.ops import opq as topq
 from ivfhnsw_tpu_torch.ops import pq as tpq
 from ivfhnsw_tpu_torch.ops import topk as tt
 
@@ -219,3 +223,46 @@ def test_update_with_split_matches_jax():
 def test_kmeans_rejects_hierarchical_range():
     with pytest.raises(NotImplementedError):
         tk.kmeans(torch.Generator(), torch.zeros(9000, 2), 8193)
+
+
+def test_apply_rotation_matches_jax():
+    R = np.asarray(jopq.random_rotation(jax.random.PRNGKey(3), 32))
+    x = _clustered(12, 200, 32)
+    y = topq.apply_rotation(_t(x), _t(R)).numpy()
+    np.testing.assert_allclose(
+        y, np.asarray(jopq.apply_rotation(jnp.asarray(x), jnp.asarray(R))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        topq.apply_rotation_transpose(_t(y), _t(R)).numpy(),
+        np.asarray(jopq.apply_rotation_transpose(jnp.asarray(y),
+                                                 jnp.asarray(R))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        topq.apply_rotation_transpose(_t(y), _t(R)).numpy(), x, rtol=1e-5,
+        atol=1e-4)
+
+
+def _orthogonality_error(R):
+    return float(np.abs(R @ R.T - np.eye(R.shape[0])).max())
+
+
+def test_train_opq_orthogonal_and_mse_matches_jax():
+    """Correlated data, where the rotation matters: the trained R is
+    orthogonal and the OPQ + PQ reconstruction MSE is within 5% of the JAX
+    package's."""
+    rng = np.random.RandomState(13)
+    x = (rng.randn(3000, 32) @ rng.randn(32, 32)).astype(np.float32)
+    kw = dict(niter=10, niter_pq=4, final_pq_niter=10, ksub=16)
+    jR, jpq_ = jopq.train_opq(jax.random.PRNGKey(0), x, 8, **kw)
+    gen = torch.Generator().manual_seed(0)
+    tR, tpq_ = topq.train_opq(gen, _t(x), 8, **kw)
+    assert _orthogonality_error(tR.numpy()) < 1e-5
+    assert _orthogonality_error(np.asarray(jR)) < 1e-5
+
+    def mse(R, pq, fw):
+        xr = fw(x, R)
+        return float(((np.asarray(pq.decode(pq.encode(xr))) - np.asarray(xr))
+                      ** 2).sum(1).mean())
+    j_mse = mse(jR, jpq_, lambda a, r: jopq.apply_rotation(jnp.asarray(a), r))
+    t_mse = mse(tR, tpq_, lambda a, r: topq.apply_rotation(_t(a), r))
+    assert abs(t_mse - j_mse) <= 0.05 * j_mse, (t_mse, j_mse)
