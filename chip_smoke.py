@@ -9,7 +9,9 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 3. each kernel against its plain PyTorch version on the card, at the
    primary shapes (B=1024, M=16, 2M codes) with empty, partial and full
    slots (and, for the grouping kernel, pruned subgroups), at both slot
-   widths (256 and 1024 codes);
+   widths (256 and 1024 codes); the min-scan kernel bit for bit
+   (torch.equal) against its plain version and the wide kernel's per-slot
+   minima;
 4. the IVFADC main path through the port's driver functions at the primary
    point: synthetic 2M x 128d corpus, nc=4096, code_size=16; train
    centroids and PQ, assign, add, finalize; search 8192 queries with engine
@@ -21,9 +23,18 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    with its plain version, both timed, and each layer of the fused search
    timed (CUDA events, median after warm-up); then the whole 8192-query
    search at each slot width and at batch 1024 and 8192, in turns;
-6. determinism: k-means at the primary point (200k learn rows, nc=4096,
+6. the two-phase top-k path (scan_topk="twophase") over phase 4's index:
+   all 8192 queries through the driver's search loop at both slot widths,
+   the min-scan kernel's launch count reset before and required to grow at
+   both; results equal to phase 4's wide engine on every query, and at
+   k=1 and k=64 on 512 queries; on the path's own schedule for one
+   8192-query batch the min kernel against its plain version (bit-equal,
+   both timed) and each layer of the two-phase search_core timed; then
+   whole-search walls of two-phase against wide at batch 1024 and 8192,
+   in turns;
+7. determinism: k-means at the primary point (200k learn rows, nc=4096,
    15 iterations) twice from one seed gives the same centroids, bit for bit;
-7. the Grouping+Pruning+OPQ main path at the flagship point (the JAX
+8. the Grouping+Pruning+OPQ main path at the flagship point (the JAX
    bench's own sizes, bench.py:10-11, :686-693): phase 4's corpus, ground
    truth, coarse centroids and assignments, nsubc=64, OPQ on; neighbours,
    OPQ + PQ, the alpha pass, the add loop, finalize (each stage timed);
@@ -31,9 +42,21 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    engine "fused" at both slot widths, the grouping kernel's launch count
    reset before and read after and required to grow at both widths; 512
    queries checked against engine "torch" with pruning on and off; recall;
-8. on the grouping path's own schedule for one 8192-query batch: the
+9. on the grouping path's own schedule for one 8192-query batch: the
    grouping kernel compared with its plain version, both timed, and each
-   layer of the fused grouping search timed.
+   layer of the fused grouping search timed;
+10. the query surface: search_device on 8192 device-resident queries
+   (CUDA tensors equal to search's output, both timed); scan_slot_demand
+   of the IVFADC index and of the flagship, and the flagship searched
+   under scan_budget = max demand * gran (slot count, lane fill, time;
+   results equal to the unbudgeted run's on all 8192 queries); search_enn
+   on 10,000 stored vectors (Recall@1).
+
+Every kernel record carries bound_ms, the least time the card could take
+for the call: the larger of its bytes (each input read once: LUTs, norm
+table, the schedule and the store rows the schedule touches; the output
+written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the
+H100 SXM data-sheet peaks at 700 W.
 
 Then one JSON line of kernel results, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
@@ -58,12 +81,16 @@ PRIMARY = dict(nb=2_000_000, nt=200_000, nq=8192, d=128, nc=4096,
                code_size=16, k=10, nprobe=32, max_codes=10000)
 KERNELS = {256: "ivfhnsw_tpu/ops/pallas/adc_scan.py:216",
            1024: "ivfhnsw_tpu/ops/pallas/adc_scan.py:368"}
+MIN_KERNELS = {256: "ivfhnsw_tpu/ops/pallas/adc_scan.py:545",
+               1024: "ivfhnsw_tpu/ops/pallas/adc_scan.py:685"}
 SOURCE = "ivfhnsw_tpu_torch/csrc/adc_scan.cu"
 GROUPING_KERNELS = {256: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:113",
                     1024: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:248"}
 GROUPING_SOURCE = "ivfhnsw_tpu_torch/csrc/grouping_scan.cu"
 FLAGSHIP = dict(nsubc=64, do_opq=True, do_pruning=True)
 SEARCH_BATCH = 8192  # IVFADCIndex.search's default batch
+HBM_BYTES_PER_MS = 3.35e9   # H100 SXM HBM3, 3.35 TB/s
+F32_OPS_PER_MS = 67e9       # H100 SXM f32 outside the tensor cores
 
 
 def smi_line() -> str:
@@ -115,6 +142,38 @@ def assert_same(d1, l1, d2, l2, what: str) -> None:
         raise AssertionError(f"{what}: labels differ at unequal distances")
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms / bound_by of a kernel record: the larger of bytes over the
+    HBM rate and f32 operations over the f32 peak."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return ({"bound_ms": by_bytes, "bound_by": "bytes"} if by_bytes >= by_ops
+            else {"bound_ms": by_ops, "bound_by": "operations"})
+
+
+def rows_touched(start, length, n: int) -> int:
+    """Distinct store rows in the union of the slots [start, start + len)."""
+    import torch
+    m = length > 0
+    one = torch.ones(int(m.sum()), dtype=torch.int32, device=start.device)
+    delta = torch.zeros(n + 1, dtype=torch.int32, device=start.device)
+    delta.index_add_(0, start[m], one)
+    delta.index_add_(0, start[m] + length[m].long(), -one)
+    return int((delta.cumsum(0)[:n] > 0).sum())
+
+
+def scan_bound(args, out_numel: int, row_bytes: int, ops_per_lane: int,
+               extra_bytes: int = 0) -> dict:
+    """bound() of an ADC scan over ``args`` (lut, norm_tab, codes,
+    norm_codes, start, length, bias, ...): LUTs, norm table and schedule
+    read once, ``row_bytes`` per touched store row, the f32 output written
+    once; ``ops_per_lane`` f32 operations per valid lane."""
+    lut, ntab, codes, _, start, length = args[:6]
+    nbytes = (lut.numel() * 4 + ntab.numel() * 4 + start.numel() * 16
+              + rows_touched(start, length, codes.shape[0]) * row_bytes
+              + out_numel * 4 + extra_bytes)
+    return bound(nbytes, int(length.sum()) * ops_per_lane)
+
+
 def phase_kernels_vs_plain(device, nb: int) -> None:
     """Both kernels against their plain versions on synthetic slots at the
     primary shapes: empty, partial and full slots; for the grouping kernel
@@ -162,6 +221,27 @@ def phase_kernels_vs_plain(device, nb: int) -> None:
             err = compare(out, plain(*args), f"{tag} synthetic gran={gran}")
             print(f"[{tag}] gran={gran} B={B} slots={nslots}: matches plain, "
                   f"max_abs_err={err!r}", flush=True)
+            if tag == "kernel":
+                check_min_kernel(args, out, f"synthetic gran={gran}")
+
+
+def check_min_kernel(args, wide, what: str) -> None:
+    """The min-scan kernel on ``args`` against its plain version and the
+    wide kernel's output ``wide`` reduced per slot: torch.equal to both."""
+    import torch
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    start, gran = args[4], args[7]
+    mins = tk.adc_scan_slots_min(*args)
+    _sync(mins.device)
+    for ref, name in ((tk.adc_scan_slots_min_plain(*args), "its plain version"),
+                      (wide.view(*start.shape, gran).amin(-1),
+                       "the wide kernel's slot minima")):
+        if not torch.equal(mins, ref):
+            raise AssertionError(f"min kernel {what}: differs from {name}")
+    print(f"[mkernel] {what} B={start.shape[0]} slots={start.shape[1]}: "
+          f"torch.equal to plain and to the wide kernel's slot minima, "
+          f"{int(torch.isinf(mins).sum())} empty slots", flush=True)
 
 
 def timed(stages: dict, name: str, fn, device):
@@ -196,7 +276,8 @@ def main() -> int:
     from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     t0 = time.perf_counter()
     sos = kbuild.build_all(["adc_scan", "grouping_scan"])
-    tk._kernel()
+    tk._entry("ivf_adc_scan_slots")
+    tk._entry("ivf_adc_scan_slots_min")
     tg._kernel()
     print(f"[build] {sos} in {time.perf_counter() - t0:.2f}s", flush=True)
     for so in sos:
@@ -342,7 +423,10 @@ def run(device, p: dict) -> list:
         kernels.append({"name": f"adc_scan_slots_gran{gran}", "route": "cuda",
                         "source": SOURCE, "replaces": KERNELS[gran],
                         "launches": launches[gran], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms,
+                        **scan_bound(args, dists.numel(), st.code_m + 1,
+                                     st.code_m + 1),
+                        "library_ms": None})
     # End to end, engine "fused": each slot width at batch 1024 and 8192
     # (the default), in turns (A B C D D C B A), after phase 4's runs.
     index.engine = "fused"
@@ -360,12 +444,265 @@ def run(device, p: dict) -> list:
               f"s {[round(x, 4) for x in w]} -> {1e6 * min(w) / ds.nq:.3f} "
               f"us/query, {ds.nq / min(w):.0f} QPS (best of 2)", flush=True)
 
-    # 6. determinism of k-means at the primary point
+    # 6. the two-phase top-k path over the same index
+    kernels += run_two_phase(device, cfg, ds, index, results)
+
+    # 7. determinism of k-means at the primary point
     phase_determinism(ds, p, device)
 
-    # 7-8. the grouping main path at the flagship point, then its layers
-    kernels += run_grouping(device, p, cfg, ds, index, idxs)
+    # 8-9. the grouping main path at the flagship point, then its layers
+    gkernels, gi, gresults = run_grouping(device, p, cfg, ds, index, idxs)
+    kernels += gkernels
+
+    # 10. the query surface
+    run_surface(device, cfg, ds, index, gi, gresults)
     return kernels
+
+
+def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
+    """Phase 6: the two-phase top-k path over phase 4's index, against
+    phase 4's wide results ``wide``; returns the min-scan kernel's result
+    records."""
+    import dataclasses
+
+    import torch
+    from ivfhnsw_tpu_torch.drivers import common as C
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.ops.topk import topk_smallest
+
+    params = cfg.search
+    index.engine, index.scan_topk = "fused", "twophase"
+    tk.adc_scan_slots_min.launches = 0
+    launches = {}
+    for layout in ("chunk", "quad"):
+        index.scan_layout = layout
+        before = tk.adc_scan_slots_min.launches
+        r = C.eval_search(index, cfg, ds)
+        launches[index.scan_gran()] = tk.adc_scan_slots_min.launches - before
+        w = wide[layout]
+        assert_same(w["dists"], w["labels"], r["dists"], r["labels"],
+                    f"two-phase {layout} vs wide, {ds.nq} queries")
+        us = r["us_per_query"]
+        print(f"[twophase] fused {layout}: {us:.2f} us/query, R@1 "
+              f"{r['recalls'][1]:.4f} R@10 {r['recalls'][10]:.4f}, equal to "
+              f"the wide engine on all {ds.nq} queries", flush=True)
+    for gran, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"min kernel gran={gran} never launched on "
+                                 "the two-phase path")
+    sub = min(512, ds.nq)
+    for layout in ("chunk", "quad"):
+        index.scan_layout = layout
+        for k in (1, 64):
+            pk = dataclasses.replace(params, k=k)
+            index.scan_topk = "wide"
+            d1, l1 = index.search(ds.queries[:sub], pk)
+            index.scan_topk = "twophase"
+            d2, l2 = index.search(ds.queries[:sub], pk)
+            if d2.shape != (sub, k) or not np.array_equal(l2 < 0,
+                                                          np.isinf(d2)):
+                raise AssertionError(f"two-phase {layout} k={k}: bad shape "
+                                     "or labels of +inf distances")
+            assert_same(d1, l1, d2, l2, f"two-phase {layout} k={k} vs wide")
+    print(f"[twophase] equal to wide at k=1 and k=64 on {sub} queries, both "
+          "widths", flush=True)
+
+    # on the path's own schedule for one 8192-query batch
+    kernels = []
+    q = torch.tensor(ds.queries[:SEARCH_BATCH], device=device)
+    B, st = q.shape[0], index.store
+    for layout in ("chunk", "quad"):
+        index.scan_layout = layout
+        gran = index.scan_gran()
+        nslots = index._scan_slots(params, params.nprobe)
+        qc, probes = streaming_topk_l2(
+            q, index.centroids, params.nprobe,
+            block=index._coarse_block_for(B),
+            point_sqnorms=index.centroid_norms)
+        start, length, bias = tk.probe_schedule(
+            probes, qc, index.centroid_norms, st.list_offsets_t,
+            params.max_codes, nslots, gran)
+        args = (tk.build_luts(q, index.pq.codebooks), index.norm_pq.centroids,
+                st.codes_t, st.norm_codes_t, start, length, bias, gran)
+        check_min_kernel(args, tk.adc_scan_slots(*args),
+                         f"main-path gran={gran}")
+        mins = tk.adc_scan_slots_min(*args)
+        err = compare(mins, tk.adc_scan_slots_min_plain(*args),
+                      f"min kernel main-path gran={gran}")
+        ksel = min(params.k, nslots)
+        mtopk = lambda: topk_smallest(mins, ksel)
+        _, ssel = mtopk()
+
+        def rescan():
+            chosen = [torch.gather(x, 1, ssel) for x in (start, length, bias)]
+            return tk.adc_scan_slots(*args[:4], *chosen, gran), chosen[0]
+        lanes, st2 = rescan()
+        final = lambda: tk.slot_labels(*topk_smallest(lanes, params.k), st2,
+                                       st.ids_t, gran)
+        core = lambda: tk.search_core(
+            q, index.centroids, index.centroid_norms, index.pq.codebooks,
+            index.norm_pq.centroids, st.codes_t, st.ids_t, st.norm_codes_t,
+            st.list_offsets_t, params.max_codes, nprobe=params.nprobe,
+            k=params.k, nslots=nslots, gran=gran,
+            coarse_block=index._coarse_block_for(B), two_phase=True)
+        ms = time_ms(lambda: tk.adc_scan_slots_min(*args))
+        plain_ms = time_ms(lambda: tk.adc_scan_slots_min_plain(*args),
+                           reps=5)
+        layers = {"phase1_min": ms, "minima_topk": time_ms(mtopk),
+                  "gather_rescan": time_ms(rescan),
+                  "final_topk_ids": time_ms(final),
+                  "search_core_2p": time_ms(core)}
+        b = scan_bound(args, mins.numel(), st.code_m + 1, st.code_m + 2)
+        valid = int(length.sum())
+        print(f"[mkernel] main-path gran={gran} B={B} slots={nslots} lane "
+              f"fill {valid / (B * nslots * gran):.3f}, rescan {ksel} slots: "
+              f"kernel {ms:.4f} ms (bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']}), plain {plain_ms:.4f} ms, max_abs_err "
+              f"{err!r}", flush=True)
+        print(f"[tplayers] gran={gran} B={B} ms " + json.dumps(
+            {k: round(v, 4) for k, v in layers.items()}), flush=True)
+        kernels.append({"name": f"adc_scan_slots_min_gran{gran}",
+                        "route": "cuda", "source": SOURCE,
+                        "replaces": MIN_KERNELS[gran],
+                        "launches": launches[gran], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, **b,
+                        "library_ms": None})
+
+    # whole search, two-phase against wide at each width and batch, in
+    # turns (A B C D ... D C B A)
+    order = [(layout, topk, batch) for batch in (1024, SEARCH_BATCH)
+             for layout in ("chunk", "quad") for topk in ("wide", "twophase")]
+    walls = {c: [] for c in order}
+    for layout, topk, batch in order + order[::-1]:
+        index.scan_layout, index.scan_topk = layout, topk
+        index.search(ds.queries[:batch], params, batch=batch)  # warm shapes
+        t = time.perf_counter()
+        index.search(ds.queries, params, batch=batch)
+        walls[(layout, topk, batch)].append(time.perf_counter() - t)
+    for (layout, topk, batch), w in walls.items():
+        print(f"[search] fused {layout} {topk} batch {batch}, {ds.nq} "
+              f"queries: wall s {[round(x, 4) for x in w]} -> "
+              f"{1e6 * min(w) / ds.nq:.3f} us/query (best of 2)", flush=True)
+    index.scan_topk = "auto"
+    return kernels
+
+
+def run_surface(device, cfg, ds, index, gi, gresults: dict) -> None:
+    """Phase 10: search_device, scan_slot_demand (IVFADC and the flagship,
+    the flagship then searched under its profiled budget) and search_enn."""
+    import dataclasses
+
+    import torch
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.ops.grouping import query_terms
+
+    params = cfg.search
+    index.engine, index.scan_layout, index.scan_topk = "fused", "chunk", "auto"
+    qd = torch.tensor(ds.queries, device=device)
+    d_h, l_h = index.search(ds.queries, params)
+    d_d, l_d = index.search_device(qd, params)
+    d_g, l_g = index.search_device(qd.reshape(8, ds.nq // 8, -1), params)
+    if any(t.device.type != device.type for t in (d_d, l_d, d_g, l_g)):
+        raise AssertionError("search_device returned tensors off the card")
+    if d_d.shape != (ds.nq, params.k) or d_g.shape != (8, ds.nq // 8,
+                                                       params.k):
+        raise AssertionError(f"search_device shapes {tuple(d_d.shape)}, "
+                             f"{tuple(d_g.shape)}")
+    if not np.array_equal(d_d.cpu().numpy(), d_h):
+        raise AssertionError("search_device distances differ from search's")
+    assert_same(d_h, l_h, d_d.cpu().numpy(), l_d.cpu().numpy(),
+                "search_device vs search")
+    assert_same(d_h, l_h, d_g.reshape(ds.nq, -1).cpu().numpy(),
+                l_g.reshape(ds.nq, -1).cpu().numpy(),
+                "search_device [8, B, d] vs search")
+
+    def on_device():
+        index.search_device(qd, params)
+        torch.cuda.synchronize()
+    walls = {"search": [], "search_device": []}
+    for name in ("search", "search_device", "search_device", "search"):
+        fn = on_device if name == "search_device" else (
+            lambda: index.search(ds.queries, params))
+        t = time.perf_counter()
+        fn()
+        walls[name].append(time.perf_counter() - t)
+    print(f"[surface] search_device on {ds.nq} device queries: CUDA tensors "
+          f"equal to search's output; wall s " + json.dumps(
+              {k: [round(x, 5) for x in v] for k, v in walls.items()}),
+          flush=True)
+
+    # slot demand, IVFADC
+    for layout in ("chunk", "quad"):
+        index.scan_layout = layout
+        dem = index.scan_slot_demand(ds.queries, params)
+        print(f"[surface] ivfadc {layout} slot demand max {int(dem.max())} "
+              f"p99 {int(np.percentile(dem, 99))} mean {dem.mean():.1f}, "
+              f"worst case {index._scan_slots(params, params.nprobe)}",
+              flush=True)
+
+    # slot demand of the flagship, then its search under the profiled budget
+    gp = dataclasses.replace(params, do_pruning=True)
+    gi.engine = "fused"
+    q = qd[:SEARCH_BATCH]
+    qc, probes = streaming_topk_l2(q, gi.centroids, gp.nprobe,
+                                   block=gi._coarse_block_for(q.shape[0]),
+                                   point_sqnorms=gi.centroid_norms)
+    term1, _, scan, ssz = query_terms(
+        q, qc, probes, gi.centroids, gi.centroid_norms, gi.nn_centroid_idxs,
+        gi.alphas, gi.inter_centroid_dists, gi._grouped().sub_sizes_t,
+        gp.max_codes, gp.do_pruning)
+    for layout in ("chunk", "quad"):
+        gi.scan_layout = layout
+        gran = gi.scan_gran()
+        dem = gi.scan_slot_demand(ds.queries, gp)
+        capped = dataclasses.replace(gp, scan_budget=int(dem.max()) * gran)
+        worst, nslots = (gi._scan_slots(gp, gp.nprobe),
+                         gi._scan_slots(capped, gp.nprobe))
+        if nslots != int(dem.max()) or nslots > worst:
+            raise AssertionError(f"flagship {layout}: budgeted slots {nslots}"
+                                 f", demand max {int(dem.max())}, worst "
+                                 f"{worst}")
+        fill = {}
+        for n in (worst, nslots):
+            length = grouping_sched(gi, probes, term1, scan, ssz, gp, n,
+                                    gran)[1]
+            fill[n] = int(length.sum()) / (length.numel() * gran)
+        walls, out = {worst: [], nslots: []}, {}
+        for prm in (gp, capped, capped, gp):
+            n = gi._scan_slots(prm, gp.nprobe)
+            gi.search(ds.queries[:256], prm)                  # warm shapes
+            t = time.perf_counter()
+            out[n] = gi.search(ds.queries, prm)
+            walls[n].append(time.perf_counter() - t)
+        d, l = out[nslots]
+        ref = gresults[layout]
+        if not np.array_equal(d, ref["dists"]):
+            raise AssertionError(f"flagship {layout}: budgeted distances "
+                                 "differ from the unbudgeted run's")
+        assert_same(ref["dists"], ref["labels"], d, l,
+                    f"flagship {layout} budgeted vs unbudgeted")
+        us = {n: 1e6 * min(w) / ds.nq for n, w in walls.items()}
+        print(f"[surface] flagship {layout} slot demand max "
+              f"{int(dem.max())} p99 {int(np.percentile(dem, 99))} mean "
+              f"{dem.mean():.1f}; scan_budget {capped.scan_budget}: slots "
+              f"{nslots} (worst case {worst}), lane fill {fill[nslots]:.3f} "
+              f"(worst case {fill[worst]:.3f}), {us[nslots]:.3f} us/query "
+              f"(worst case {us[worst]:.3f}, best of 2, in turns); equal to "
+              f"the unbudgeted run on all {ds.nq} queries", flush=True)
+
+    # search_enn: stored vectors must find themselves
+    n = min(10_000, ds.nb)
+    index.scan_layout = "auto"
+    index.search_enn(ds.base[:256])                           # warm shapes
+    t = time.perf_counter()
+    d, l = index.search_enn(ds.base[:n])
+    dt = time.perf_counter() - t
+    if d.shape != (n,) or not np.isfinite(d).all():
+        raise AssertionError(f"search_enn: bad distances {d.shape}")
+    print(f"[surface] search_enn on {n} stored vectors: Recall@1 "
+          f"{float((l == np.arange(n)).mean()):.4f}, "
+          f"{1e6 * dt / n:.3f} us/query", flush=True)
 
 
 def phase_determinism(ds, p: dict, device) -> None:
@@ -388,9 +725,10 @@ def phase_determinism(ds, p: dict, device) -> None:
           f"{runs[0][1]:.3f} s / {runs[1][1]:.3f} s", flush=True)
 
 
-def run_grouping(device, p: dict, cfg, ds, index, idxs) -> list:
-    """Phases 7-8 at the flagship point over phase 4's corpus; returns the
-    grouping kernel's result records."""
+def run_grouping(device, p: dict, cfg, ds, index, idxs):
+    """Phases 8-9 at the flagship point over phase 4's corpus; returns the
+    grouping kernel's result records, the flagship index and its search
+    results at each slot width."""
     import dataclasses
 
     import torch
@@ -407,7 +745,7 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs) -> list:
                                    do_pruning=FLAGSHIP["do_pruning"]))
     stages = {}
 
-    # 7. the main path, in the grouping driver's order (drivers/
+    # 8. the main path, in the grouping driver's order (drivers/
     # grouping_eval.py::build), with the coarse centroids and assignments
     # of phase 4
     tg.grouping_scan_slots.launches = 0
@@ -466,7 +804,7 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs) -> list:
     print("[grouping] stages_s " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
 
-    # 8. on the path's own schedule for one 8192-query batch
+    # 9. on the path's own schedule for one 8192-query batch
     kernels = []
     params = gcfg.search
     q = torch.tensor(ds.queries[:SEARCH_BATCH], device=device)
@@ -486,10 +824,8 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs) -> list:
             gv.sub_sizes_t, params.max_codes, params.do_pruning)
         term1, term2, scan, ssz = terms()
         t2 = torch.where(scan, term2, float("inf"))
-        eff = torch.where(scan, ssz, 0).sum(dim=2)
-        sched = lambda: tg.grouping_schedule(
-            probes, term1, eff, ssz.sum(dim=2), gv.group_offsets_t,
-            params.max_codes, nslots, gran)
+        sched = lambda: grouping_sched(gi, probes, term1, scan, ssz, params,
+                                       nslots, gran)
         start, length, bias, seg = sched()
         luts = lambda: tg.build_luts(q_rot, gi.pq.codebooks)
         args = (luts(), gi.norm_pq.centroids, t2, st.codes_t,
@@ -499,7 +835,7 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs) -> list:
                       f"grouping main-path gran={gran}")
         topk = lambda: tg.topk_labels(dists, start, st.ids_t, params.k, gran)
         core = lambda: gi._search_fused(q, params, params.nprobe, nslots,
-                                        gran, "topk")
+                                        gran, "topk", False)
         ms = time_ms(lambda: tg.grouping_scan_slots(*args))
         plain_ms = time_ms(lambda: tg.grouping_scan_slots_plain(*args),
                            reps=5)
@@ -522,8 +858,26 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs) -> list:
                         "route": "cuda", "source": GROUPING_SOURCE,
                         "replaces": GROUPING_KERNELS[gran],
                         "launches": launches[gran], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
-    return kernels
+                        "ms": ms, "plain_ms": plain_ms,
+                        **scan_bound([args[i] for i in (0, 1, 3, 4, 6, 7)],
+                                     dists.numel(),
+                                     st.code_m + 2, st.code_m + 2,
+                                     extra_bytes=t2.numel() * 4
+                                     + seg.numel() * 4),
+                        "library_ms": None})
+    return kernels, gi, results
+
+
+def grouping_sched(gi, probes, term1, scan, ssz, params, nslots: int,
+                   gran: int):
+    """The flagship's slot schedule of one batch, as its fused engine lays
+    it out (ops/cuda/grouping_scan.py::search_core)."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    eff = torch.where(scan, ssz, 0).sum(dim=2)
+    return tg.grouping_schedule(probes, term1, eff, ssz.sum(dim=2),
+                                gi._grouped().group_offsets_t,
+                                params.max_codes, nslots, gran)
 
 
 if __name__ == "__main__":

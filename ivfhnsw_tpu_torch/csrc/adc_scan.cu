@@ -1,16 +1,37 @@
-// Fused ADC posting-list scan for Hopper (sm_90a), bound to Python with
-// ctypes (ivfhnsw_tpu_torch/ops/cuda/adc_scan.py::adc_scan_slots).
+// Fused ADC posting-list scans for Hopper (sm_90a), bound to Python with
+// ctypes (ivfhnsw_tpu_torch/ops/cuda/adc_scan.py::adc_scan_slots and
+// ::adc_scan_slots_min). Two kernels over one per-lane sum.
 //
-// Replaces the two TPU scan kernels of the JAX package, together with the
-// mask-and-bias pass they leave to XLA (adc_scan.py:338-341, :486-494):
-//   K1  ivfhnsw_tpu/ops/pallas/adc_scan.py:216  _adc_kernel       (256-code chunk slots)
-//   K2  ivfhnsw_tpu/ops/pallas/adc_scan.py:368  _adc_kernel_quad  (1024-code quad slots)
-// The chunk/quad split is a choice of TPU DMA tile format; both compute the
-// same function, which this kernel computes at either slot width `gran`:
+// 1. The wide scan replaces the two TPU scan kernels of the JAX package,
+//    together with the mask-and-bias pass they leave to XLA
+//    (adc_scan.py:338-341, :486-494):
+//      K1  ivfhnsw_tpu/ops/pallas/adc_scan.py:216  _adc_kernel       (256-code chunk slots)
+//      K2  ivfhnsw_tpu/ops/pallas/adc_scan.py:368  _adc_kernel_quad  (1024-code quad slots)
+//    The chunk/quad split is a choice of TPU DMA tile format; both compute
+//    the same function, which this kernel computes at either slot width
+//    `gran`:
 //
-//   out[b, s*gran + l] = bias[b,s] + norm_tab[norm_codes[r]] + sum_m lut[b,m,codes[r,m]]
-//                          with r = start[b,s] + l                 if l < len[b,s]
-//                      = +inf                                      otherwise
+//      out[b, s*gran + l] = bias[b,s] + norm_tab[norm_codes[r]] + sum_m lut[b,m,codes[r,m]]
+//                             with r = start[b,s] + l              if l < len[b,s]
+//                         = +inf                                   otherwise
+//
+// 2. The min scan replaces the two phase-1 kernels of the JAX package's
+//    exact two-phase top-k (proof at adc_scan.py:529-536):
+//      K3  ivfhnsw_tpu/ops/pallas/adc_scan.py:545  _adc_kernel_min       (per-chunk minima)
+//      K4  ivfhnsw_tpu/ops/pallas/adc_scan.py:685  _adc_kernel_quad_min  (per-quad minima)
+//    It computes, at either slot width,
+//
+//      mins[b, s] = min over l < min(len[b,s], gran) of the same lane sum
+//                 = +inf when len[b,s] == 0
+//
+//    The JAX kernels store the RAW minimum and add the bias outside, on
+//    [B, n_units]. Here the bias goes inside, in the wide kernel's order
+//    (bias, norm, m = 0..M-1; one device function below computes both), so
+//    mins equals the wide output's per-slot amin bit for bit, and phase 2
+//    selects slots in the same arithmetic that the rescan then reports. f32
+//    rounding is monotone, so min(fl(b + x)) = fl(b + min x) over a slot's
+//    lanes with one bias, and the result stays within the cross-engine
+//    tolerance of JAX's raw-min-plus-bias.
 //
 // lut [B,M,256] f32 already holds the -2 factor (build_luts_ext semantics),
 // norm_tab [256] f32 is the norm-PQ decode table, and codes [N,M] u8 /
@@ -19,22 +40,29 @@
 // start + len <= N for every slot with len > 0 (ops/cuda/adc_scan.py::
 // probe_schedule builds such schedules).
 //
-// What bounds it on an H100. Per valid lane the kernel reads M+1 code bytes
-// (17 B at M=16) from device memory or L2, does M+1 random 4-byte lookups in
-// the shared-memory LUT, and it writes 4 B for EVERY lane of the padded
-// [B, nslots*gran] output, empty and tail lanes included. So the wide f32
-// output and the shared-memory gather rate (random codes hit random banks)
-// bound it, rather than the 17 B/code read.
+// What bounds them on an H100. Per valid lane a kernel reads M+1 code bytes
+// (17 B at M=16) from device memory or L2 and does M+1 random 4-byte lookups
+// in the shared-memory LUT. The wide kernel also writes 4 B for EVERY lane
+// of the padded [B, nslots*gran] output, empty and tail lanes included, so
+// the wide f32 output and the shared-memory gather rate (random codes hit
+// random banks) bound it, rather than the 17 B/code read. The min kernel
+// writes 4 B per slot (gran times less), so its byte bound is the LUTs
+// (B x 16 KB) and the touched store rows; in practice the shared-memory
+// lookups bound it (M+1 per valid lane, at most 32 per clock per SM).
 //
 // What the design does about it. One thread block per query stages that
 // query's M x 256 LUT and the norm table in shared memory once (17 KB at
 // M=16) and then walks all of the query's slots, so LUT bytes come from
 // device memory once per query; reloading them per 256-code slot would read
-// ~4x more LUT bytes than code bytes. Threads own lanes tid, tid+blockDim,
-// ..., so code reads and output stores are coalesced; at M=16 a lane's code
-// is one 16-byte load. Empty slots cost only their +inf stores. Row
-// addresses are 64-bit (start*M passes 2^31 at ~134M codes). Shrinking the
-// output itself (a fused per-block top-k) is left to a later version.
+// ~4x more LUT bytes than code bytes. At M=16 a lane's code is one 16-byte
+// load. Row addresses are 64-bit (start*M passes 2^31 at ~134M codes).
+//   wide: threads own lanes tid, tid+blockDim, ..., so code reads and output
+//         stores are coalesced; empty slots cost only their +inf stores.
+//   min:  each warp takes slots warp, warp+nwarps, ...; its lanes stride
+//         the slot's codes (coalesced rows), keep a running fminf, and a
+//         __shfl_xor_sync tree reduces the warp; lane 0 stores one float.
+//         No __syncthreads after staging and no atomics; an empty slot
+//         costs one +inf store.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,6 +72,43 @@ namespace {
 
 constexpr int KSUB = 256;
 constexpr int THREADS = 256;
+
+// Stage the query's LUT and the norm table in shared memory.
+__device__ __forceinline__ void stage_tables(float* s_lut, float* s_norm,
+                                             const float* __restrict__ lut_b,
+                                             const float* __restrict__ norm_tab,
+                                             int M) {
+  for (int i = threadIdx.x; i < M * KSUB; i += blockDim.x) s_lut[i] = lut_b[i];
+  for (int i = threadIdx.x; i < KSUB; i += blockDim.x) s_norm[i] = norm_tab[i];
+  __syncthreads();
+}
+
+// One lane's distance, summed as the plain versions sum it: bias, norm,
+// then m = 0..M-1. Both kernels call this, so their results agree bit for
+// bit.
+__device__ __forceinline__ float lane_sum(const float* s_lut,
+                                          const float* s_norm,
+                                          const uint8_t* __restrict__ codes,
+                                          const uint8_t* __restrict__ norm_codes,
+                                          int64_t r, float bs, int M,
+                                          int vec16) {
+  float acc = bs + s_norm[norm_codes[r]];
+  if (vec16) {
+    const uint4 c = *reinterpret_cast<const uint4*>(codes + r * 16);
+    const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        acc += s_lut[(q * 4 + t) * KSUB + ((w[q] >> (8 * t)) & 0xff)];
+      }
+    }
+  } else {
+    const uint8_t* c = codes + r * M;
+    for (int m = 0; m < M; ++m) acc += s_lut[m * KSUB + c[m]];
+  }
+  return acc;
+}
 
 __global__ void __launch_bounds__(THREADS)
 adc_scan_slots_kernel(const float* __restrict__ lut,           // [B, M, 256]
@@ -60,10 +125,7 @@ adc_scan_slots_kernel(const float* __restrict__ lut,           // [B, M, 256]
   float* s_norm = smem + M * KSUB;   // 256
 
   const int64_t b = blockIdx.x;
-  const float* lut_b = lut + b * M * KSUB;
-  for (int i = threadIdx.x; i < M * KSUB; i += blockDim.x) s_lut[i] = lut_b[i];
-  for (int i = threadIdx.x; i < KSUB; i += blockDim.x) s_norm[i] = norm_tab[i];
-  __syncthreads();
+  stage_tables(s_lut, s_norm, lut + b * M * KSUB, norm_tab, M);
 
   const int64_t sb = b * nslots;
   float* out_b = out + sb * gran;
@@ -73,37 +135,73 @@ adc_scan_slots_kernel(const float* __restrict__ lut,           // [B, M, 256]
     const float bs = bias[sb + s];
     float* o = out_b + static_cast<int64_t>(s) * gran;
     for (int l = threadIdx.x; l < gran; l += blockDim.x) {
-      float v = INFINITY;
-      if (l < ln) {
-        const int64_t r = st + l;
-        // Same summation order as the plain version: bias, norm, m = 0..M-1.
-        float acc = bs + s_norm[norm_codes[r]];
-        if (vec16) {
-          const uint4 c = *reinterpret_cast<const uint4*>(codes + r * 16);
-          const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              acc += s_lut[(q * 4 + t) * KSUB + ((w[q] >> (8 * t)) & 0xff)];
-            }
-          }
-        } else {
-          const uint8_t* c = codes + r * M;
-          for (int m = 0; m < M; ++m) acc += s_lut[m * KSUB + c[m]];
-        }
-        v = acc;
-      }
-      o[l] = v;
+      o[l] = l < ln ? lane_sum(s_lut, s_norm, codes, norm_codes, st + l, bs,
+                               M, vec16)
+                    : INFINITY;
     }
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+adc_scan_slots_min_kernel(const float* __restrict__ lut,           // [B, M, 256]
+                          const float* __restrict__ norm_tab,      // [256]
+                          const uint8_t* __restrict__ codes,       // [N, M]
+                          const uint8_t* __restrict__ norm_codes,  // [N]
+                          const int64_t* __restrict__ start,       // [B, S]
+                          const int32_t* __restrict__ len,         // [B, S]
+                          const float* __restrict__ bias,          // [B, S]
+                          float* __restrict__ mins,                // [B, S]
+                          int nslots, int M, int gran, int vec16) {
+  extern __shared__ float smem[];
+  float* s_lut = smem;               // M * 256
+  float* s_norm = smem + M * KSUB;   // 256
+
+  const int64_t b = blockIdx.x;
+  stage_tables(s_lut, s_norm, lut + b * M * KSUB, norm_tab, M);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int64_t sb = b * nslots;
+  for (int s = warp; s < nslots; s += nwarps) {
+    const int ln = min(len[sb + s], gran);   // warp-uniform
+    float best = INFINITY;
+    if (ln > 0) {
+      const int64_t st = start[sb + s];
+      const float bs = bias[sb + s];
+      for (int l = lane; l < ln; l += 32) {
+        best = fminf(best, lane_sum(s_lut, s_norm, codes, norm_codes, st + l,
+                                    bs, M, vec16));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      best = fminf(best, __shfl_xor_sync(0xffffffffu, best, o));
+    }
+    if (lane == 0) mins[sb + s] = best;
+  }
+}
+
+// Shared memory of one block, opted in above the 48 KB default. Returns 0
+// or a CUDA error code.
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+int use_vec16(int M, const void* codes) {
+  return (M == 16) && ((reinterpret_cast<uintptr_t>(codes) & 15u) == 0);
+}
+
 }  // namespace
 
-// Launches the scan on `stream`. Returns 0 or the CUDA error code of the
-// launch (cudaGetLastError right after it); the kernel's own faults surface
-// at the caller's next synchronisation.
+// Each entry point launches its kernel on `stream` and returns 0 or the
+// CUDA error code of the launch (cudaGetLastError right after it); the
+// kernel's own faults surface at the caller's next synchronisation.
+
 extern "C" int ivf_adc_scan_slots(const void* lut, const void* norm_tab,
                                   const void* codes, const void* norm_codes,
                                   const void* start, const void* len,
@@ -111,14 +209,7 @@ extern "C" int ivf_adc_scan_slots(const void* lut, const void* norm_tab,
                                   int nslots, int M, int gran, void* stream) {
   if (B == 0 || nslots == 0 || gran == 0) return 0;
   const size_t smem = static_cast<size_t>(M + 1) * KSUB * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        adc_scan_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int vec16 =
-      (M == 16) && ((reinterpret_cast<uintptr_t>(codes) & 15u) == 0);
+  if (const int e = set_smem(adc_scan_slots_kernel, smem)) return e;
   adc_scan_slots_kernel<<<B, THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lut), static_cast<const float*>(norm_tab),
@@ -126,6 +217,27 @@ extern "C" int ivf_adc_scan_slots(const void* lut, const void* norm_tab,
       static_cast<const uint8_t*>(norm_codes),
       static_cast<const int64_t*>(start), static_cast<const int32_t*>(len),
       static_cast<const float*>(bias), static_cast<float*>(out), nslots, M,
-      gran, vec16);
+      gran, use_vec16(M, codes));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ivf_adc_scan_slots_min(const void* lut, const void* norm_tab,
+                                      const void* codes,
+                                      const void* norm_codes,
+                                      const void* start, const void* len,
+                                      const void* bias, void* mins, int B,
+                                      int nslots, int M, int gran,
+                                      void* stream) {
+  if (B == 0 || nslots == 0) return 0;
+  const size_t smem = static_cast<size_t>(M + 1) * KSUB * sizeof(float);
+  if (const int e = set_smem(adc_scan_slots_min_kernel, smem)) return e;
+  adc_scan_slots_min_kernel<<<B, THREADS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lut), static_cast<const float*>(norm_tab),
+      static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(norm_codes),
+      static_cast<const int64_t*>(start), static_cast<const int32_t*>(len),
+      static_cast<const float*>(bias), static_cast<float*>(mins), nslots, M,
+      gran, use_vec16(M, codes));
   return static_cast<int>(cudaGetLastError());
 }

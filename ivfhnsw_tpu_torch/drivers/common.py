@@ -28,6 +28,7 @@ from ivfhnsw_tpu_torch.utils.timer import StopW
 ASSIGN_BATCH = 1_000_000  # reference batch size (test_ivfhnsw_sift1b.cpp:102)
 GT_BASE_BLOCK = 262_144   # base rows per ground-truth sweep step
 GT_QUERY_BLOCK = 1024
+DEFAULT_DEVICE = "cuda"   # -device when the command line names none
 
 
 def log(msg: str) -> None:
@@ -208,12 +209,29 @@ def eval_search(index, cfg: RunConfig, ds, search_fn=None) -> dict:
 
 def parse_driver_args(extra_flags=(), argv=None):
     """Reference CLI grammar + driver-local flags (e.g. -synthetic SEED,
-    -device DEV)."""
+    -device DEV). ``-device`` defaults to ``cuda``."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    extras = {}
+    extras = {"device": DEFAULT_DEVICE} if "device" in extra_flags else {}
     for flag in extra_flags:
         if f"-{flag}" in argv:
             i = argv.index(f"-{flag}")
             extras[flag] = argv[i + 1]
             del argv[i:i + 2]
     return parse_args(argv), extras
+
+
+def synthetic_setup(cfg: RunConfig, extras: dict):
+    """What every synthetic-corpus driver checks and makes first: refuse
+    the unported file-backed flags, resolve ``-device`` (a CUDA device
+    without a card is an error, never a fall-back to the CPU; ``-device
+    cpu`` runs the kernels' plain versions), and draw the corpus of seed
+    ``-synthetic``. Returns (device, dataset)."""
+    if "synthetic" not in extras:
+        raise NotImplementedError("file-backed runs are not ported yet; "
+                                  "pass -synthetic SEED")
+    check_supported(cfg)
+    device = torch.device(extras["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"-device {extras['device']}: no CUDA device is "
+                           "available; pass -device cpu to run on the CPU")
+    return device, SyntheticDataset(cfg, int(extras["synthetic"]), device)

@@ -5,9 +5,10 @@ synthetic corpus: centroids, neighbour centroids, [OPQ +] PQ on subcentroid
 residuals, assignment, the alpha pass, the add loop, the direct
 inter-centroid distances, then the timed query loop with optional pruning.
 
-Usage (reference ``-flag value`` grammar, plus -synthetic and -device):
+Usage (reference ``-flag value`` grammar, plus -synthetic and -device,
+which defaults to cuda; -device cpu runs the kernels' plain versions):
     python -m ivfhnsw_tpu_torch.drivers.grouping_eval -synthetic 0 \\
-        -device cuda -nsubc 64 -do_opq on -do_pruning on \\
+        -nsubc 64 -do_opq on -do_pruning on \\
         -d 128 -nc 4096 -code_size 16 -nb 2000000 -nt 200000 -nq 8192 \\
         -nprobe 32 -max_codes 10000 -k 10
 """
@@ -22,14 +23,7 @@ from ivfhnsw_tpu_torch.models.grouping import IVFADCGroupingIndex
 
 def build(cfg, extras):
     """The build stages of this command; returns (index, dataset)."""
-    if "synthetic" not in extras:
-        raise NotImplementedError("file-backed runs are not ported yet; "
-                                  "pass -synthetic SEED")
-    if "device" not in extras:
-        raise ValueError("pass -device (e.g. cuda or cpu)")
-    C.check_supported(cfg)
-    device = torch.device(extras["device"])
-    ds = C.SyntheticDataset(cfg, int(extras["synthetic"]), device)
+    device, ds = C.synthetic_setup(cfg, extras)
     index = IVFADCGroupingIndex(cfg.index, device)
     gen = torch.Generator(device=device).manual_seed(0)
     C.setup_quantizer(index, cfg, ds, gen)

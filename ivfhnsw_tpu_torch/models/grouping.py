@@ -23,6 +23,9 @@ Search engines:
   hand-written grouping scan kernel, counterpart of the JAX ``"pallas"``
   engine;
 - ``"auto"`` — ``"fused"``.
+
+``search`` and ``search_device`` run them through the per-batch core of
+``IVFADCIndex``; ``scan_slot_demand`` counts group-granular slots.
 """
 
 from __future__ import annotations
@@ -333,8 +336,12 @@ class IVFADCGroupingIndex(IVFADCIndex):
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
-                      exact_reduce: str):
-        """Fused engine: ``ops.cuda.grouping_scan.search_core``."""
+                      exact_reduce: str, two_phase: bool):
+        """Fused engine: ``ops.cuda.grouping_scan.search_core`` (wide top-k
+        only: the JAX grouping engine has no two-phase top-k)."""
+        if two_phase:
+            raise NotImplementedError("the grouping engines have no "
+                                      "two-phase top-k; use scan_topk='auto'")
         store, gv = self.store, self._grouped()
         return fused.search_core(
             q, self.centroids, self.centroid_norms, self.pq.codebooks,
@@ -351,11 +358,11 @@ class IVFADCGroupingIndex(IVFADCIndex):
                             max_codes=self.max_codes,
                             do_pruning=self.do_pruning)
 
-    def search(self, queries, params: SearchParams | None = None,
-               batch: int = 8192):
-        """As ``IVFADCIndex.search``, with ``params.do_pruning`` (default
-        ``self.do_pruning``) selecting subgroup pruning."""
-        if params is not None and params.coarse_mode == "routed":
+    def _searcher(self, params: SearchParams):
+        """As ``IVFADCIndex._searcher`` (so ``search`` and ``search_device``
+        run it), with ``params.do_pruning`` (default ``self.do_pruning``)
+        selecting subgroup pruning."""
+        if params.coarse_mode == "routed":
             raise NotImplementedError(
                 "coarse_mode='routed' is not wired into the grouping search "
                 "engines; use 'exact'")
@@ -363,4 +370,17 @@ class IVFADCGroupingIndex(IVFADCIndex):
             raise RuntimeError("grouping index has no alphas or neighbours: "
                                "build it (alpha_pass, finalize_alphas, "
                                "add_batch) first")
-        return super().search(queries, params, batch)
+        return super()._searcher(params)
+
+    def _slot_demand(self, probes: torch.Tensor, params: SearchParams,
+                     gran: int) -> torch.Tensor:
+        """Slots of each query's probed groups (the JAX grouping
+        ``scan_slot_demand``): ceil(group size / gran) per probe. Without
+        pruning the max_codes budget on full group sizes gates the probes,
+        exactly as ``grouping_schedule``; under pruning the budget counts
+        unpruned codes, which the demand does not know, so every probed
+        group counts (an upper bound that never truncates)."""
+        off = self._grouped().group_offsets_t
+        sizes = off[probes + 1] - off[probes]
+        inc = probe_budget(sizes, 0 if params.do_pruning else params.max_codes)
+        return torch.where(inc, (sizes + gran - 1) // gran, 0).sum(dim=1)

@@ -4,18 +4,24 @@ reference's ``ivfhnsw::IndexIVF_HNSW``).
 
 Ported so far: the build path (``train_centroids``/``set_centroids``,
 ``assign``, ``train_pq`` with or without OPQ, ``add_batch`` + ``finalize``)
-and ``search`` with engines
+and the query surface: ``search`` (host arrays in and out) and
+``search_device`` (tensors on the device in and out) over one per-batch
+core with engines
 
 - ``"torch"`` — the portable gather + top-k path (``ops.adc``), counterpart
   of the JAX ``"xla"`` engine and the oracle for the fused one;
 - ``"fused"`` — coarse, LUTs, slot schedule, the hand-written scan kernel,
-  bin-32 top-k and id resolution (``ops.cuda.adc_scan.search_core``),
-  counterpart of the JAX ``"pallas"`` engine;
-- ``"auto"`` — ``"fused"``.
+  top-k and id resolution (``ops.cuda.adc_scan.search_core``), counterpart
+  of the JAX ``"pallas"`` engine, with the wide or the two-phase top-k
+  (``scan_topk``);
+- ``"auto"`` — ``"fused"``;
+
+``scan_slot_demand`` (profiled slot counts), ``search_precomputed``,
+``search_per_probe`` and ``search_enn``.
 
 Every tensor of an index lives on the ``device`` it was created with; the
-fused engine runs its scan kernel on a CUDA device and the kernel's plain
-version on the CPU.
+fused engine runs its scan kernels on a CUDA device and the kernels' plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -28,11 +34,13 @@ from ivfhnsw_tpu_torch.models.storage import (PostingListBuilder,
 from ivfhnsw_tpu_torch.ops import adc as adc_ops
 from ivfhnsw_tpu_torch.ops.cuda import adc_scan as fused
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+from ivfhnsw_tpu_torch.ops.grouping import probe_budget
 from ivfhnsw_tpu_torch.ops.kmeans import kmeans
 from ivfhnsw_tpu_torch.ops.opq import (apply_rotation,
                                        apply_rotation_transpose, train_opq)
 from ivfhnsw_tpu_torch.ops.pq import (ENCODE_ROWS, NormQuantizer,
                                       ProductQuantizer, _pq_ip_luts)
+from ivfhnsw_tpu_torch.ops.topk import topk_smallest
 from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
 
 # Average codes per list at and above which "auto" picks 1024-code slots
@@ -72,6 +80,13 @@ class IVFADCIndex:
         # Fused-engine slot width: "chunk" = 256 codes, "quad" = 1024, or
         # "auto" by average list size (see _resolve_layout).
         self.scan_layout = "auto"
+        # Fused-engine top-k: "wide" scans every lane of every slot and
+        # top-ks them all; "twophase" takes per-slot minima from the
+        # min-scan kernel, picks the k best slots and rescans only those
+        # (ops.cuda.adc_scan.two_phase_topk); "auto" = "wide", the JAX
+        # package's rule (see _resolve_two_phase). The torch engine ignores
+        # it.
+        self.scan_topk = "auto"
 
     @classmethod
     def from_numpy_state(cls, config: IndexConfig, centroids, codebooks,
@@ -281,6 +296,15 @@ class IVFADCIndex:
                              "of auto/torch/fused")
         return "fused" if self.engine == "auto" else self.engine
 
+    def _resolve_two_phase(self) -> bool:
+        """Whether the fused engine takes the two-phase top-k. "auto"
+        resolves to wide, the JAX package's rule (its models/ivfadc.py:
+        473-484, measured there on a TPU); only "twophase" selects it."""
+        if self.scan_topk not in ("auto", "wide", "twophase"):
+            raise ValueError(f"unknown scan_topk {self.scan_topk!r}; expected "
+                             "one of auto/wide/twophase")
+        return self.scan_topk == "twophase"
+
     def _resolve_layout(self) -> str:
         """Slot width of the fused engine: "quad" (1024 codes) when the
         average list fills enough of a 1024-code slot, else "chunk" (256)."""
@@ -327,25 +351,34 @@ class IVFADCIndex:
 
     def _search_torch(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, L: int):
-        """Portable engine (the JAX ``_search_core``): gather the scan
-        window, 3-term ADC, top-k."""
-        store = self.store
+        """Portable engine (the JAX ``_search_core``): exact coarse, then
+        :meth:`_scan_window`."""
         qc_dists, probes = streaming_topk_l2(
             q, self.centroids, nprobe, block=COARSE_BLOCK,
             point_sqnorms=self.centroid_norms)
+        return self._scan_window(q, qc_dists, probes, params.max_codes, L,
+                                 params.k)
+
+    def _scan_window(self, q: torch.Tensor, qc_dists: torch.Tensor,
+                     probes: torch.Tensor, max_codes: int, L: int, k: int):
+        """The portable scan over given probes [B, P] (ascending distance
+        qc_dists [B, P]): LUTs, the max_codes window of L codes, 3-term
+        ADC, top-k. Returns (dists [B, k] f32, labels [B, k] int64, -1
+        where the distance is +inf)."""
+        store = self.store
         luts = _pq_ip_luts(self._rotate(q), self.pq.codebooks)
         pos, seg, valid, _ = adc_ops.probe_positions(
-            probes, store.list_offsets_t, params.max_codes, L)
+            probes, store.list_offsets_t, max_codes, L)
         g_norm = self.norm_pq.centroids[store.norm_codes_t[pos].long()]
         term1 = torch.gather(qc_dists - self.centroid_norms[probes], 1, seg)
         dists, sel = adc_ops.adc_scan(luts, store.codes_t[pos],
-                                      term1 + g_norm, valid, params.k)
+                                      term1 + g_norm, valid, k)
         labels = torch.gather(store.ids_t[pos], 1, sel).long()
         return dists, torch.where(torch.isfinite(dists), labels, -1)
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
-                      exact_reduce: str):
+                      exact_reduce: str, two_phase: bool):
         """Fused engine: ``ops.cuda.adc_scan.search_core``."""
         store = self.store
         return fused.search_core(
@@ -354,12 +387,38 @@ class IVFADCIndex:
             store.norm_codes_t, store.list_offsets_t, params.max_codes,
             nprobe=nprobe, k=params.k, nslots=nslots, gran=gran,
             coarse_block=self._coarse_block_for(q.shape[0]),
-            exact_reduce=exact_reduce,
-            lut_queries=self._rotate(q))
+            exact_reduce=exact_reduce, lut_queries=self._rotate(q),
+            two_phase=two_phase)
 
     def _default_params(self) -> SearchParams:
         return SearchParams(k=10, nprobe=self.nprobe,
                             max_codes=self.max_codes)
+
+    def _searcher(self, params: SearchParams):
+        """Resolve what a search under ``params`` fixes for every batch
+        (engine, coarse mode, slot count and width, top-k), and return the
+        per-batch core: fn(q [B, d] f32 on the device) -> (dists [B, k]
+        f32, labels [B, k] int64), both on the device."""
+        self._ensure_store()
+        nprobe = min(params.nprobe, self.nc)
+        engine = self._resolve_engine()
+        exact_reduce = self._exact_reduce(params)
+        if engine == "torch":
+            L = self._scan_budget(params)
+            return lambda q: self._search_torch(q, params, nprobe, L)
+        nslots, gran = self._scan_slots(params, nprobe), self.scan_gran()
+        two_phase = self._resolve_two_phase()
+        return lambda q: self._search_fused(q, params, nprobe, nslots, gran,
+                                            exact_reduce, two_phase)
+
+    def _search_batches(self, q_all: torch.Tensor, params: SearchParams,
+                        batch: int):
+        """The per-batch core over q_all [N, d], ``batch`` rows at a time;
+        (dists [N, k], labels [N, k]) on the device."""
+        core = self._searcher(params)
+        out = [core(q_all[off:off + batch])
+               for off in range(0, q_all.shape[0], batch)]
+        return torch.cat([d for d, _ in out]), torch.cat([l for _, l in out])
 
     def search(self, queries, params: SearchParams | None = None,
                batch: int = 8192):
@@ -368,25 +427,122 @@ class IVFADCIndex:
         where fewer than k codes were scanned. (The JAX package caps its
         kernel batch at 1024 for TPU scalar memory; nothing here needs
         that cap.)"""
+        d, l = self._search_batches(self._tensor(queries),
+                                    params or self._default_params(), batch)
+        return d.cpu().numpy(), l.cpu().numpy()
+
+    def search_device(self, queries: torch.Tensor,
+                      params: SearchParams | None = None, batch: int = 8192):
+        """Serving path (the JAX ``search_device``): queries already on this
+        index's device, [N, d] (searched ``batch`` at a time) or [G, B, d]
+        (G batches of B). Returns (dists, labels) on the device, [N, k] or
+        [G, B, k] f32 / int64 (-1 where the distance is +inf), with no host
+        copy and no synchronisation; :meth:`search` runs the same per-batch
+        core. (The JAX package's scalar-memory batch cap and one-launch
+        ``lax.map`` are TPU workarounds with no counterpart here.)"""
+        if not isinstance(queries, torch.Tensor):
+            raise TypeError("search_device takes a tensor on the index's "
+                            f"device ({self.device}); use search for host "
+                            "arrays")
+        dev = queries.device
+        if dev.type != self.device.type or (
+                self.device.index is not None and dev.index is not None
+                and dev.index != self.device.index):
+            raise ValueError(f"queries on {dev}, index on {self.device}")
+        if queries.dim() not in (2, 3):
+            raise ValueError(f"queries must be [N, d] or [G, B, d], got "
+                             f"shape {tuple(queries.shape)}")
         params = params or self._default_params()
-        self._ensure_store()
-        q_all = self._tensor(queries)
-        nprobe = min(params.nprobe, self.nc)
-        engine = self._resolve_engine()
+        q = queries.to(torch.float32)
+        if q.dim() == 2:
+            return self._search_batches(q, params, batch)
+        G, B, d = q.shape
+        dists, labels = self._search_batches(q.reshape(G * B, d), params, B)
+        return dists.reshape(G, B, -1), labels.reshape(G, B, -1)
+
+    def scan_slot_demand(self, queries, params: SearchParams,
+                         batch: int = 8192) -> np.ndarray:
+        """Per-query slot demand [nq] int64 of the fused engine at the
+        resolved slot width (the JAX ``scan_slot_demand``): the slots the
+        schedule fills under ``params``' nprobe / max_codes rule. Setting
+        ``params.scan_budget = max(demand) * scan_gran()`` cuts the slot
+        count from the worst case to what these queries use, with the same
+        results for every query whose demand is at most that max. Exact
+        coarse modes only (others raise, as in search)."""
         exact_reduce = self._exact_reduce(params)
-        if engine == "torch":
-            L = self._scan_budget(params)
-        else:
-            nslots, gran = self._scan_slots(params, nprobe), self.scan_gran()
-        out_d, out_l = [], []
+        self._ensure_store()
+        nprobe = min(params.nprobe or self.nprobe, self.nc)
+        gran = self.scan_gran()
+        q_all = self._tensor(queries)
+        out = []
         for off in range(0, q_all.shape[0], batch):
             q = q_all[off:off + batch]
-            if engine == "torch":
-                d, l = self._search_torch(q, params, nprobe, L)
-            else:
-                d, l = self._search_fused(q, params, nprobe, nslots, gran,
-                                          exact_reduce)
-            out_d.append(d)
-            out_l.append(l)
-        return (torch.cat(out_d).cpu().numpy(),
-                torch.cat(out_l).cpu().numpy())
+            # The fused engine's own coarse step, so that the probes (and
+            # the demand) are those its search at this batch size takes.
+            _, probes = streaming_topk_l2(
+                q, self.centroids, nprobe,
+                block=self._coarse_block_for(q.shape[0]),
+                point_sqnorms=self.centroid_norms, exact_reduce=exact_reduce)
+            out.append(self._slot_demand(probes, params, gran))
+        return torch.cat(out).cpu().numpy()
+
+    def _slot_demand(self, probes: torch.Tensor, params: SearchParams,
+                     gran: int) -> torch.Tensor:
+        """Slots each query fills: ceil(list size / gran) for each probe
+        the max_codes budget admits (``probe_schedule``'s rule). [B]
+        int64."""
+        off = self.store.list_offsets_t
+        sizes = off[probes + 1] - off[probes]
+        inc = probe_budget(sizes, params.max_codes)
+        return torch.where(inc, (sizes + gran - 1) // gran, 0).sum(dim=1)
+
+    def search_precomputed(self, queries, probes, qc_dists,
+                           params: SearchParams):
+        """search2 (IndexIVF_HNSW.h:178; the JAX ``search_precomputed``):
+        the portable scan over caller-given probe lists, probes [nq, P]
+        centroid ids in ascending distance and qc_dists [nq, P] their
+        query-centroid distances, under ``params``' max_codes budget.
+        Returns (dists [nq, k] f32, labels [nq, k] int64, -1 where the
+        distance is +inf) on the host."""
+        self._ensure_store()
+        d, l = self._scan_window(
+            self._tensor(queries), self._tensor(qc_dists), self._keys(probes),
+            params.max_codes, self._scan_budget(params), params.k)
+        return d.cpu().numpy(), l.cpu().numpy()
+
+    def search_per_probe(self, queries, params: SearchParams):
+        """search2m (IndexIVF_HNSW.cpp:503-531; the JAX
+        ``search_per_probe``): an independent top-k within each of the
+        nprobe nearest lists, every list scanned whole (the reference's
+        budget exit is commented out, :528-530, so max_codes is ignored).
+        Returns (dists [nq, nprobe, k] f32, labels [nq, nprobe, k] int64,
+        -1 where the distance is +inf) on the host."""
+        store = self._ensure_store()
+        q = self._tensor(queries)
+        nprobe = min(params.nprobe, self.nc)
+        qc_dists, probes = streaming_topk_l2(
+            q, self.centroids, nprobe, block=COARSE_BLOCK,
+            point_sqnorms=self.centroid_norms)
+        B, mx = q.shape[0], max(store.max_list_size(), 1)
+        off = store.list_offsets_t
+        lane = torch.arange(mx, device=self.device)
+        valid = lane < (off[probes + 1] - off[probes])[:, :, None]
+        pos = torch.where(valid, off[probes][:, :, None] + lane,
+                          0).reshape(B, nprobe * mx)
+        bias = ((qc_dists - self.centroid_norms[probes]).repeat_interleave(
+            mx, dim=1) + self.norm_pq.centroids[store.norm_codes_t[pos].long()])
+        luts = _pq_ip_luts(self._rotate(q), self.pq.codebooks)
+        dist = adc_ops.adc_distances(luts, store.codes_t[pos], bias,
+                                     valid.reshape(B, nprobe * mx))
+        d, sel = topk_smallest(dist.reshape(B, nprobe, mx), params.k)
+        labels = torch.gather(store.ids_t[pos].reshape(B, nprobe, mx), 2,
+                              sel).long()
+        labels = torch.where(torch.isfinite(d), labels, -1)
+        return d.cpu().numpy(), labels.cpu().numpy()
+
+    def search_enn(self, x):
+        """search_enn (IndexIVF_HNSW.cpp:393-451): the exact self-match
+        check, a k=1, nprobe=1 search of stored vectors with no budget.
+        Returns (dists [n], labels [n]) on the host."""
+        d, l = self.search(x, SearchParams(k=1, nprobe=1, max_codes=0))
+        return d[:, 0], l[:, 0]

@@ -61,15 +61,21 @@ def window_positions(lists: torch.Tensor, sizes: torch.Tensor,
     return torch.where(valid, pos, 0), seg, valid
 
 
-def adc_scan(luts: torch.Tensor, codes: torch.Tensor, bias: torch.Tensor,
-             valid: torch.Tensor, k: int):
-    """ADC distance evaluation + top-k over a gathered scan window.
+def adc_distances(luts: torch.Tensor, codes: torch.Tensor,
+                  bias: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """ADC distances ``bias - 2 * sum_m luts[b, m, codes[b, l, m]]`` over a
+    gathered scan window, +inf where not ``valid``.
 
     luts [B, M, ksub] f32 inner-product tables; codes [B, L, M] uint8;
-    bias [B, L] f32 (term1 + decoded norm); valid [B, L] bool.
-    Returns (dists [B, k] ascending, positions [B, k] int64 into the
-    window)."""
+    bias [B, L] f32 (term1 + decoded norm); valid [B, L] bool. Returns
+    [B, L] f32."""
     idx = codes.long().transpose(1, 2)                        # [B, M, L]
     t3 = torch.gather(luts, 2, idx).sum(dim=1)                # [B, L]
-    dist = torch.where(valid, bias - 2.0 * t3, float("inf"))
-    return topk_smallest(dist, k)
+    return torch.where(valid, bias - 2.0 * t3, float("inf"))
+
+
+def adc_scan(luts: torch.Tensor, codes: torch.Tensor, bias: torch.Tensor,
+             valid: torch.Tensor, k: int):
+    """:func:`adc_distances` + top-k. Returns (dists [B, k] ascending,
+    positions [B, k] int64 into the window)."""
+    return topk_smallest(adc_distances(luts, codes, bias, valid), k)

@@ -1,5 +1,5 @@
 """Fused IVFADC search engine (``engine="fused"``) around the hand-written
-ADC scan kernel ``csrc/adc_scan.cu``.
+ADC scan kernels of ``csrc/adc_scan.cu``.
 
 Counterpart of ``ivfhnsw_tpu/ops/pallas/adc_scan.py::pallas_search_core``
 (exact coarse only). The steps:
@@ -14,8 +14,14 @@ Counterpart of ``ivfhnsw_tpu/ops/pallas/adc_scan.py::pallas_search_core``
 5. bin-32 top-k;
 6. id resolution.
 
-Only step 4 is a kernel; the rest is plain torch, as the JAX package left
-it to XLA. The TPU tile formats (24/72-row tiles, pad rows, list
+With ``two_phase=True`` (the JAX ``scan_topk="twophase"`` engine,
+``adc_search_tiles_2p`` / ``adc_search_quad_2p``) steps 4-5 become
+:func:`two_phase_topk`: per-slot minima from the min-scan kernel
+(:func:`adc_scan_slots_min`), an exact top-k over them, a rescan of the
+chosen slots with the wide kernel, and an exact top-k over their lanes.
+
+Only the scans are kernels; the rest is plain torch, as the JAX package
+left it to XLA. The TPU tile formats (24/72-row tiles, pad rows, list
 alignment) are gone: the kernel reads the store's flat ``codes [N, M]``
 and ``norm_codes [N]`` in place, and a slot is a (start row, length, bias)
 triple.
@@ -30,7 +36,8 @@ import torch
 
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu_torch.ops.pq import _pq_ip_luts
-from ivfhnsw_tpu_torch.ops.topk import binned_topk_smallest
+from ivfhnsw_tpu_torch.ops.topk import (binned_topk_smallest,
+                                       topk_smallest)
 
 CHUNK = 256    # slot width of the JAX package's "chunk" layout
 RCHUNK = 1024  # slot width of its "quad" layout
@@ -124,9 +131,12 @@ def adc_scan_slots_plain(lut: torch.Tensor, norm_tab: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _entry(name: str):
+    """The C entry point ``name`` of ``csrc/adc_scan.cu`` (built at first
+    use): 8 pointers, B, nslots, M, gran, the stream; returns a CUDA error
+    code."""
     from ivfhnsw_tpu_torch.ops.cuda.build import load_library
-    fn = load_library("adc_scan").ivf_adc_scan_slots
+    fn = getattr(load_library("adc_scan"), name)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -148,6 +158,45 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{fn}: {name} is not contiguous")
 
 
+def _scan(wrapper, plain, out_cols: int, lut: torch.Tensor,
+          norm_tab: torch.Tensor, codes: torch.Tensor,
+          norm_codes: torch.Tensor, start: torch.Tensor,
+          length: torch.Tensor, bias: torch.Tensor,
+          gran: int) -> torch.Tensor:
+    """Check the arguments of scan wrapper ``wrapper``, then run ``plain``
+    on CPU tensors, or on CUDA tensors launch the entry point ``ivf_`` +
+    its name into a new [B, out_cols] f32 output (raising if the launch
+    fails) and count the launch in ``wrapper.launches``."""
+    fn = wrapper.__name__
+    B, S = start.shape
+    N, M = codes.shape
+    dev = lut.device
+    _check("lut", lut, torch.float32, (B, M, KSUB), dev, fn)
+    _check("norm_tab", norm_tab, torch.float32, (KSUB,), dev, fn)
+    _check("codes", codes, torch.uint8, (N, M), dev, fn)
+    _check("norm_codes", norm_codes, torch.uint8, (N,), dev, fn)
+    _check("start", start, torch.int64, (B, S), dev, fn)
+    _check("length", length, torch.int32, (B, S), dev, fn)
+    _check("bias", bias, torch.float32, (B, S), dev, fn)
+    if gran <= 0 or max(B, S, M, gran) >= 2 ** 31:
+        raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M} "
+                         f"gran={gran}")
+    args = (lut, norm_tab, codes, norm_codes, start, length, bias)
+    if dev.type == "cpu":
+        return plain(*args, gran)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    out = torch.empty((B, out_cols), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _entry(f"ivf_{fn}")(*(t.data_ptr() for t in args),
+                                 out.data_ptr(), B, S, M, gran, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    wrapper.launches += 1
+    return out
+
+
 def adc_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
                    codes: torch.Tensor, norm_codes: torch.Tensor,
                    start: torch.Tensor, length: torch.Tensor,
@@ -162,39 +211,44 @@ def adc_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
     CPU tensors go to the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback. ``launches`` counts
     kernel launches."""
-    B, S = start.shape
-    N, M = codes.shape
-    dev = lut.device
-    _check("lut", lut, torch.float32, (B, M, KSUB), dev)
-    _check("norm_tab", norm_tab, torch.float32, (KSUB,), dev)
-    _check("codes", codes, torch.uint8, (N, M), dev)
-    _check("norm_codes", norm_codes, torch.uint8, (N,), dev)
-    _check("start", start, torch.int64, (B, S), dev)
-    _check("length", length, torch.int32, (B, S), dev)
-    _check("bias", bias, torch.float32, (B, S), dev)
-    if gran <= 0 or max(B, S, M, gran) >= 2 ** 31:
-        raise ValueError(f"adc_scan_slots: unsupported sizes B={B} S={S} "
-                         f"M={M} gran={gran}")
-    if dev.type == "cpu":
-        return adc_scan_slots_plain(lut, norm_tab, codes, norm_codes, start,
-                                    length, bias, gran)
-    if dev.type != "cuda":
-        raise ValueError(f"adc_scan_slots: no kernel for device {dev}")
-    out = torch.empty((B, S * gran), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(lut.data_ptr(), norm_tab.data_ptr(), codes.data_ptr(),
-                       norm_codes.data_ptr(), start.data_ptr(),
-                       length.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                       B, S, M, gran, stream)
-    if rc != 0:
-        raise RuntimeError(f"adc_scan_slots: kernel launch failed with CUDA "
-                           f"error {rc}")
-    adc_scan_slots.launches += 1
-    return out
+    return _scan(adc_scan_slots, adc_scan_slots_plain, start.shape[1] * gran,
+                 lut, norm_tab, codes, norm_codes, start, length, bias, gran)
 
 
 adc_scan_slots.launches = 0
+
+
+def adc_scan_slots_min_plain(lut: torch.Tensor, norm_tab: torch.Tensor,
+                             codes: torch.Tensor, norm_codes: torch.Tensor,
+                             start: torch.Tensor, length: torch.Tensor,
+                             bias: torch.Tensor, gran: int) -> torch.Tensor:
+    """Plain-torch version of the min-scan kernel: the wide scan's per-slot
+    minimum, mins[b, s] = min_l out[b, s*gran + l] (+inf for an empty
+    slot). Returns [B, nslots] f32."""
+    B, S = start.shape
+    out = adc_scan_slots_plain(lut, norm_tab, codes, norm_codes, start,
+                               length, bias, gran)
+    return out.view(B, S, gran).amin(dim=-1)
+
+
+def adc_scan_slots_min(lut: torch.Tensor, norm_tab: torch.Tensor,
+                       codes: torch.Tensor, norm_codes: torch.Tensor,
+                       start: torch.Tensor, length: torch.Tensor,
+                       bias: torch.Tensor, gran: int) -> torch.Tensor:
+    """Phase 1 of the two-phase top-k: [B, nslots] f32 per-slot minima of
+    the scan (see :func:`adc_scan_slots_min_plain`), bias included, so
+    they equal ``adc_scan_slots(...).view(B, S, gran).amin(-1)`` bit for
+    bit. Arguments and requirements as :func:`adc_scan_slots`.
+
+    CPU tensors go to the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise: there is no fallback. ``launches`` counts
+    kernel launches."""
+    return _scan(adc_scan_slots_min, adc_scan_slots_min_plain,
+                 start.shape[1], lut, norm_tab, codes, norm_codes, start,
+                 length, bias, gran)
+
+
+adc_scan_slots_min.launches = 0
 
 
 def search_core(queries: torch.Tensor, centroids: torch.Tensor,
@@ -204,12 +258,15 @@ def search_core(queries: torch.Tensor, centroids: torch.Tensor,
                 list_offsets: torch.Tensor, max_codes: int, *, nprobe: int,
                 k: int, nslots: int, gran: int, coarse_block: int,
                 exact_reduce: str = "topk",
-                lut_queries: torch.Tensor | None = None):
+                lut_queries: torch.Tensor | None = None,
+                two_phase: bool = False):
     """End-to-end IVFADC search of a query batch on the fused engine.
     ``lut_queries`` (the OPQ-rotated queries) replaces ``queries`` for the
-    LUTs; coarse selection stays in the original space. Returns
-    (dists [B, k] f32 ascending, labels [B, k] int64, -1 where the distance
-    is +inf)."""
+    LUTs; coarse selection stays in the original space. ``two_phase``
+    selects :func:`two_phase_topk` in place of the wide scan + bin-32
+    top-k (same results: distances exact, labels may differ at ties).
+    Returns (dists [B, k] f32 ascending, labels [B, k] int64, -1 where the
+    distance is +inf)."""
     qc_dists, probes = streaming_topk_l2(
         queries, centroids, nprobe, block=coarse_block,
         point_sqnorms=centroid_norms, exact_reduce=exact_reduce)
@@ -218,9 +275,10 @@ def search_core(queries: torch.Tensor, centroids: torch.Tensor,
                                          gran)
     lut = build_luts(queries if lut_queries is None else lut_queries,
                      codebooks)
-    dists = adc_scan_slots(lut, norm_centroids, codes, norm_codes, start,
-                           length, bias, gran)
-    return topk_labels(dists, start, ids, k, gran)
+    args = (lut, norm_centroids, codes, norm_codes, start, length, bias)
+    if two_phase:
+        return two_phase_topk(*args, ids, k, gran)
+    return topk_labels(adc_scan_slots(*args, gran), start, ids, k, gran)
 
 
 def topk_labels(dists: torch.Tensor, start: torch.Tensor, ids: torch.Tensor,
@@ -229,7 +287,46 @@ def topk_labels(dists: torch.Tensor, start: torch.Tensor, ids: torch.Tensor,
     through the slots' start rows. Returns (dists [B, k] ascending,
     labels [B, k] int64, -1 where the distance is +inf)."""
     best, sel = binned_topk_smallest(dists, k, bin_size=32)
+    return best, slot_labels(best, sel, start, ids, gran)
+
+
+def slot_labels(best: torch.Tensor, sel: torch.Tensor, start: torch.Tensor,
+                ids: torch.Tensor, gran: int) -> torch.Tensor:
+    """Ids of the scan-output lanes ``sel`` [B, k] (lane s*gran + l is row
+    start[b, s] + l of the store); -1 where ``best`` is +inf."""
     finite = torch.isfinite(best)
     pos = torch.gather(start, 1, sel // gran) + sel % gran
     labels = ids[torch.where(finite, pos, 0)].long()
-    return best, torch.where(finite, labels, -1)
+    return torch.where(finite, labels, -1)
+
+
+def two_phase_topk(lut: torch.Tensor, norm_tab: torch.Tensor,
+                   codes: torch.Tensor, norm_codes: torch.Tensor,
+                   start: torch.Tensor, length: torch.Tensor,
+                   bias: torch.Tensor, ids: torch.Tensor, k: int, gran: int):
+    """The exact two-phase top-k over a slot schedule (counterpart of the
+    JAX ``adc_search_tiles_2p`` / ``adc_search_quad_2p``):
+
+    1. per-slot minima, :func:`adc_scan_slots_min` [B, S];
+    2. the ksel = min(k, S) slots of smallest minimum (exact top-k; slots
+       are distinct, so no lane is counted twice);
+    3. their (start, len, bias), rescanned lane by lane with
+       :func:`adc_scan_slots` [B, ksel*gran];
+    4. an exact top-k over those lanes and ids through the chosen slots.
+
+    A slot holding one of the true k nearest has a minimum no larger than
+    the k-th distance, and at most k slots can be strictly smaller, so the
+    chosen slots hold every true neighbour (equal distances at the k-th
+    place may swap labels). The minima carry the bias in the rescan's own
+    arithmetic, so the selection sees exactly the distances it returns.
+    A query with fewer than k non-empty slots chooses empty ones (minimum
+    +inf); their lanes are +inf and get label -1, and the rescan width
+    ksel*gran >= k whenever gran >= k, else the top-k pads with +inf.
+    Returns (dists [B, k] ascending, labels [B, k] int64)."""
+    mins = adc_scan_slots_min(lut, norm_tab, codes, norm_codes, start,
+                              length, bias, gran)
+    _, ssel = topk_smallest(mins, min(k, mins.shape[1]))
+    st, ln, bs = (torch.gather(x, 1, ssel) for x in (start, length, bias))
+    dists = adc_scan_slots(lut, norm_tab, codes, norm_codes, st, ln, bs, gran)
+    best, sel = topk_smallest(dists, k)
+    return best, slot_labels(best, sel, st, ids, gran)

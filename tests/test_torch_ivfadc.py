@@ -277,18 +277,21 @@ def test_driver_cpu_runs_and_prints_recall():
 
 
 @pytest.mark.parametrize("argv", [
-    ["-synthetic", "0"],                                   # no -device
+    ["-synthetic", "0"],                  # -device cuda (default), no card
     ["-device", "cpu"],                                    # no -synthetic
     ["-synthetic", "0", "-device", "cpu", "-path_pq", "x.pq"],
 ])
-def test_driver_refuses_unported_flags(argv):
-    with pytest.raises((ValueError, NotImplementedError)):
+def test_driver_refuses_unported_flags(argv, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    exc = RuntimeError if "-device" not in argv else NotImplementedError
+    with pytest.raises(exc):
         ivfadc_eval.main(argv)
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, ivfhnsw_tpu_torch, ivfhnsw_tpu_torch.drivers."
             "ivfadc_eval, ivfhnsw_tpu_torch.drivers.grouping_eval, "
+            "ivfhnsw_tpu_torch.drivers.enn, "
             "ivfhnsw_tpu_torch.ops.cuda.build, ivfhnsw_tpu_torch.ops.opq; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'ivfhnsw_tpu' not in sys.modules")

@@ -1,6 +1,7 @@
-"""The ADC scan wrapper of the PyTorch port (ivfhnsw_tpu_torch.ops.cuda.
-adc_scan.adc_scan_slots): dispatch, argument checks and the plain version
-on the CPU, and the CUDA kernel against its plain version on a card.
+"""The ADC scan wrappers of the PyTorch port (ivfhnsw_tpu_torch.ops.cuda.
+adc_scan.adc_scan_slots and adc_scan_slots_min): dispatch, argument checks
+and the plain versions on the CPU, the CUDA kernels against their plain
+versions on a card, and the two-phase top-k against the wide one.
 
 This file imports no jax, so it also runs on a machine with a GPU and no
 jax; tests/conftest.py imports jax, so run it there with
@@ -8,7 +9,9 @@ jax; tests/conftest.py imports jax, so run it there with
 Tests marked ``cuda`` skip where torch.cuda.is_available() is false.
 Tolerance on the card: identical +inf pattern, finite lanes within
 rtol=1e-4, atol=1e-3 (the kernel and the plain version sum in the same
-order, so they normally agree exactly).
+order, so they normally agree exactly). The min-scan kernel is held to
+bit equality (``torch.equal``) with its plain version and with the wide
+kernel's per-slot minima: both kernels share one per-lane sum.
 """
 
 import numpy as np
@@ -141,6 +144,119 @@ def test_fused_engine_matches_torch_engine_on_card(layout):
     before = tk.adc_scan_slots.launches
     d2, l2 = idx.search(queries, p)
     assert tk.adc_scan_slots.launches > before
+    assert_same(d1, l1, d2, l2)
+
+
+def assert_same(d1, l1, d2, l2):
     np.testing.assert_allclose(d2, d1, rtol=RTOL, atol=ATOL)
     mism = l1 != l2
     assert np.allclose(d1[mism], d2[mism], rtol=RTOL, atol=ATOL)
+
+
+def _wide_minima(args):
+    lut, ntab, codes, ncodes, start, length, bias, gran = args
+    B, S = start.shape
+    return tk.adc_scan_slots(*args).view(B, S, gran).amin(-1)
+
+
+@pytest.mark.parametrize("gran", [256, 1024])
+def test_min_dispatcher_cpu_is_the_wide_slot_minimum(gran):
+    """On CPU tensors adc_scan_slots_min runs its plain version, counts no
+    launch, and equals the wide scan's per-slot amin bit for bit (+inf for
+    the empty slot)."""
+    args = _small_args(gran=gran)
+    before = tk.adc_scan_slots_min.launches
+    mins = tk.adc_scan_slots_min(*args)
+    assert tk.adc_scan_slots_min.launches == before
+    assert mins.shape == (3, 4)
+    assert torch.equal(mins, _wide_minima(args))
+    assert torch.isinf(mins[:, 0]).all() and torch.isfinite(mins[:, 1:]).all()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "gran"])
+def test_min_dispatcher_rejects_what_the_kernel_does_not_take(bad):
+    args = _small_args()
+    if bad == "dtype":
+        args[5] = args[5].long()                            # length
+    elif bad == "shape":
+        args[6] = args[6][:, :2].contiguous()               # bias
+    elif bad == "device":
+        args[1] = args[1].to("meta")                        # norm_tab
+    else:
+        args[7] = 0
+    with pytest.raises((TypeError, ValueError)):
+        tk.adc_scan_slots_min(*args)
+
+
+def _small_index(device, nb=9000, seed=3):
+    """A small clustered index (d=32, nc=64, M=8) built on ``device``."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(48, 32).astype(np.float32) * 5
+    base = centers[rng.randint(0, 48, nb)] + rng.randn(nb, 32).astype(
+        np.float32)
+    idx = IVFADCIndex(IndexConfig(d=32, nc=64, code_size=8), device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    idx.train_centroids(gen, base[:4000], niter=8)
+    idx.train_pq(gen, base[:4000], pq_niter=5)
+    idx.add_batch(base)
+    idx.finalize()
+    return idx, base
+
+
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_two_phase_matches_wide_cpu(k):
+    """scan_topk="twophase" (minima, k best slots, rescan) returns the wide
+    engine's distances on the CPU; k=64 exceeds some queries' slot count,
+    so their tails are +inf with label -1 in both."""
+    idx, base = _small_index("cpu")
+    p = SearchParams(k=k, nprobe=4, max_codes=0)
+    idx.engine, idx.scan_layout = "fused", "chunk"
+    d1, l1 = idx.search(base[:30] + 0.1, p)
+    idx.scan_topk = "twophase"
+    d2, l2 = idx.search(base[:30] + 0.1, p)
+    assert_same(d1, l1, d2, l2)
+    np.testing.assert_array_equal(l2 < 0, np.isinf(d2))
+
+
+def test_unknown_scan_topk_raises():
+    idx, base = _small_index("cpu", nb=3000)
+    idx.scan_topk = "fast"
+    with pytest.raises(ValueError):
+        idx.search(base[:4], SearchParams(k=5, nprobe=4, max_codes=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 16])
+@pytest.mark.parametrize("gran", [256, 1024])
+def test_min_kernel_bit_equal_on_card(M, gran):
+    """The min-scan kernel equals its plain version and the wide kernel's
+    per-slot minima bit for bit; M=16 takes the 16-byte code loads."""
+    _need_card()
+    args = _small_args("cuda", M=M, gran=gran)
+    before = tk.adc_scan_slots_min.launches
+    mins = tk.adc_scan_slots_min(*args)
+    torch.cuda.synchronize()
+    assert tk.adc_scan_slots_min.launches == before + 1
+    assert torch.equal(mins, tk.adc_scan_slots_min_plain(*args))
+    assert torch.equal(mins, _wide_minima(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["chunk", "quad"])
+def test_two_phase_matches_wide_on_card(layout):
+    """A 200k-code index on the card: the two-phase top-k (min kernel, then
+    the wide kernel on the chosen slots) against the wide engine, at k=10
+    with a max_codes budget and at k=64 without."""
+    _need_card()
+    idx, base = _small_index("cuda", nb=200_000)
+    queries = base[:256] + 0.1
+    idx.engine, idx.scan_layout = "fused", layout
+    for p in (SearchParams(k=10, nprobe=16, max_codes=3000),
+              SearchParams(k=64, nprobe=8, max_codes=0)):
+        idx.scan_topk = "wide"
+        d1, l1 = idx.search(queries, p)
+        idx.scan_topk = "twophase"
+        before = tk.adc_scan_slots_min.launches
+        d2, l2 = idx.search(queries, p)
+        assert tk.adc_scan_slots_min.launches > before
+        assert_same(d1, l1, d2, l2)
