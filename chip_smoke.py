@@ -3,9 +3,9 @@
 Phases, each of which raises on failure (nothing is caught and carried on):
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: compile the hand-written kernels (csrc/adc_scan.cu and
-   csrc/grouping_scan.cu) with nvcc from this checkout, one nvcc process
-   per source, started together;
+2. build: compile the hand-written kernels (csrc/adc_scan.cu,
+   csrc/grouping_scan.cu and csrc/scan_lab.cu) with nvcc from this
+   checkout, one nvcc process per source, started together;
 3. each kernel against its plain PyTorch version on the card, at the
    primary shapes (B=1024, M=16, 2M codes) with empty, partial and full
    slots (and, for the grouping kernel, pruned subgroups), at both slot
@@ -50,13 +50,24 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    of the IVFADC index and of the flagship, and the flagship searched
    under scan_budget = max demand * gran (slot count, lane fill, time;
    results equal to the unbudgeted run's on all 8192 queries); search_enn
-   on 10,000 stored vectors (Recall@1).
+   on 10,000 stored vectors (Recall@1);
+11. the scan lab: phase 4's index written as a lab cache (save_quantizers,
+   write, np.save of centroids and queries) and read back through the lab's
+   loader into a fresh index; its files rewrite byte-identically and its
+   search equals phase 4's results on all 8192 queries at both slot widths;
+   then every variant of ops/cuda/scan_lab.py (the Hopper counterparts of
+   the TPU lab rigs L1-L4 of tools/kernel_lab.py) on the main path's
+   schedule for one 8192-query batch at both widths, each checked
+   (torch.equal to its plain version and, for a full-function variant, to
+   adc_scan_slots / adc_scan_slots_min) and timed, with every lab launch
+   count reset before and required to grow; a [lab] line with the
+   compute-only / copy-only / LUT-copies decomposition.
 
 Every kernel record carries bound_ms, the least time the card could take
-for the call: the larger of its bytes (each input read once: LUTs, norm
-table, the schedule and the store rows the schedule touches; the output
-written once) over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the
-H100 SXM data-sheet peaks at 700 W.
+for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
+(each input read once: LUTs, norm table, the schedule and the store rows
+the schedule touches; the output written once) over 3.35 TB/s and its f32
+operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W.
 
 Then one JSON line of kernel results, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
@@ -69,12 +80,13 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+from ivfhnsw_tpu_torch.utils.timer import device_ms
 
 RTOL, ATOL = 1e-4, 1e-3
 PRIMARY = dict(nb=2_000_000, nt=200_000, nq=8192, d=128, nc=4096,
@@ -89,8 +101,7 @@ GROUPING_KERNELS = {256: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:113",
 GROUPING_SOURCE = "ivfhnsw_tpu_torch/csrc/grouping_scan.cu"
 FLAGSHIP = dict(nsubc=64, do_opq=True, do_pruning=True)
 SEARCH_BATCH = 8192  # IVFADCIndex.search's default batch
-HBM_BYTES_PER_MS = 3.35e9   # H100 SXM HBM3, 3.35 TB/s
-F32_OPS_PER_MS = 67e9       # H100 SXM f32 outside the tensor cores
+LAB_SOURCE = "ivfhnsw_tpu_torch/csrc/scan_lab.cu"
 
 
 def smi_line() -> str:
@@ -114,24 +125,6 @@ def compare(out, ref, what: str) -> float:
     return float((out[fin] - ref[fin]).abs().max())
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of fn() on the current stream, CUDA events."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def assert_same(d1, l1, d2, l2, what: str) -> None:
     """The cross-engine contract: distances within RTOL/ATOL, labels may
     differ only where distances tie."""
@@ -140,38 +133,6 @@ def assert_same(d1, l1, d2, l2, what: str) -> None:
     if mism.any() and not np.allclose(d1[mism], d2[mism], rtol=RTOL,
                                       atol=ATOL):
         raise AssertionError(f"{what}: labels differ at unequal distances")
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """bound_ms / bound_by of a kernel record: the larger of bytes over the
-    HBM rate and f32 operations over the f32 peak."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
-    return ({"bound_ms": by_bytes, "bound_by": "bytes"} if by_bytes >= by_ops
-            else {"bound_ms": by_ops, "bound_by": "operations"})
-
-
-def rows_touched(start, length, n: int) -> int:
-    """Distinct store rows in the union of the slots [start, start + len)."""
-    import torch
-    m = length > 0
-    one = torch.ones(int(m.sum()), dtype=torch.int32, device=start.device)
-    delta = torch.zeros(n + 1, dtype=torch.int32, device=start.device)
-    delta.index_add_(0, start[m], one)
-    delta.index_add_(0, start[m] + length[m].long(), -one)
-    return int((delta.cumsum(0)[:n] > 0).sum())
-
-
-def scan_bound(args, out_numel: int, row_bytes: int, ops_per_lane: int,
-               extra_bytes: int = 0) -> dict:
-    """bound() of an ADC scan over ``args`` (lut, norm_tab, codes,
-    norm_codes, start, length, bias, ...): LUTs, norm table and schedule
-    read once, ``row_bytes`` per touched store row, the f32 output written
-    once; ``ops_per_lane`` f32 operations per valid lane."""
-    lut, ntab, codes, _, start, length = args[:6]
-    nbytes = (lut.numel() * 4 + ntab.numel() * 4 + start.numel() * 16
-              + rows_touched(start, length, codes.shape[0]) * row_bytes
-              + out_numel * 4 + extra_bytes)
-    return bound(nbytes, int(length.sum()) * ops_per_lane)
 
 
 def phase_kernels_vs_plain(device, nb: int) -> None:
@@ -275,10 +236,13 @@ def main() -> int:
     # 2. build, one nvcc per source, all started together
     from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     t0 = time.perf_counter()
-    sos = kbuild.build_all(["adc_scan", "grouping_scan"])
+    sos = kbuild.build_all(["adc_scan", "grouping_scan", "scan_lab"])
     tk._entry("ivf_adc_scan_slots")
     tk._entry("ivf_adc_scan_slots_min")
     tg._kernel()
+    from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
+    for name in sl.VARIANTS:
+        sl._entry(name)
     print(f"[build] {sos} in {time.perf_counter() - t0:.2f}s", flush=True)
     for so in sos:
         with open(so[:-3] + ".log") as f:
@@ -296,7 +260,7 @@ def main() -> int:
 
 
 def run(device, p: dict) -> list:
-    """Phases 3-8 on ``device`` at the sizes ``p``; returns the kernel
+    """Phases 3-11 on ``device`` at the sizes ``p``; returns the kernel
     result records."""
     import torch
     from ivfhnsw_tpu_torch import IVFADCIndex
@@ -306,6 +270,7 @@ def run(device, p: dict) -> list:
     from ivfhnsw_tpu_torch.ops.topk import binned_topk_smallest
     from ivfhnsw_tpu_torch.utils.config import (IndexConfig, RunConfig,
                                                 SearchParams)
+    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
 
     # 3. kernels against plain on synthetic slots
     phase_kernels_vs_plain(device, p["nb"])
@@ -379,7 +344,10 @@ def run(device, p: dict) -> list:
     for layout in ("chunk", "quad"):
         index.scan_layout = layout
         gran = index.scan_gran()
-        nslots = index._scan_slots(params, params.nprobe)
+        args = (*index.scan_inputs(q, params), gran)
+        start, length = args[4], args[5]
+        nslots = start.shape[1]
+        # the engine's layers one by one, for their times
         coarse = lambda: streaming_topk_l2(
             q, index.centroids, params.nprobe,
             block=index._coarse_block_for(q.shape[0]),
@@ -388,10 +356,7 @@ def run(device, p: dict) -> list:
         sched = lambda: tk.probe_schedule(
             probes, qc, index.centroid_norms, st.list_offsets_t,
             params.max_codes, nslots, gran)
-        start, length, bias = sched()
         luts = lambda: tk.build_luts(q, index.pq.codebooks)
-        args = (luts(), index.norm_pq.centroids, st.codes_t, st.norm_codes_t,
-                start, length, bias, gran)
         dists = tk.adc_scan_slots(*args)
         err = compare(dists, tk.adc_scan_slots_plain(*args),
                       f"main-path gran={gran}")
@@ -405,12 +370,12 @@ def run(device, p: dict) -> list:
             st.list_offsets_t, params.max_codes, nprobe=params.nprobe,
             k=params.k, nslots=nslots, gran=gran,
             coarse_block=index._coarse_block_for(q.shape[0]))
-        ms = time_ms(lambda: tk.adc_scan_slots(*args))
-        plain_ms = time_ms(lambda: tk.adc_scan_slots_plain(*args))
-        layers = {"coarse": time_ms(coarse), "luts": time_ms(luts),
-                  "schedule": time_ms(sched), "scan": ms,
-                  "topk": time_ms(topk), "ids": time_ms(ids),
-                  "search_core": time_ms(core)}
+        ms = device_ms(lambda: tk.adc_scan_slots(*args))
+        plain_ms = device_ms(lambda: tk.adc_scan_slots_plain(*args))
+        layers = {"coarse": device_ms(coarse), "luts": device_ms(luts),
+                  "schedule": device_ms(sched), "scan": ms,
+                  "topk": device_ms(topk), "ids": device_ms(ids),
+                  "search_core": device_ms(core)}
         valid = int(length.sum())
         nbytes = (valid * (st.code_m + 1) + dists.numel() * 4
                   + B * (st.code_m + 1) * 1024)
@@ -456,7 +421,68 @@ def run(device, p: dict) -> list:
 
     # 10. the query surface
     run_surface(device, cfg, ds, index, gi, gresults)
+
+    # 11. the scan lab, through the index read back from disk
+    kernels += run_lab(device, cfg, ds, index, results)
     return kernels
+
+
+def run_lab(device, cfg, ds, index, results: dict) -> list:
+    """Phase 11: phase 4's index through the lab cache files and the lab's
+    loader, then every lab variant on the main path's schedule; returns
+    one kernel record per lab record."""
+    import filecmp
+    import tempfile
+
+    from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
+    from ivfhnsw_tpu_torch.tools import kernel_lab as kl
+
+    params = cfg.search
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        kl.write_cache(index, ds.queries, tmp)
+        t_write = time.perf_counter() - t
+        t = time.perf_counter()
+        lab_index, queries = kl.load_cache(tmp, device)
+        t_read = time.perf_counter() - t
+        again = os.path.join(tmp, "again")
+        kl.write_cache(lab_index, queries, again)
+        names = sorted(os.listdir(again))
+        for name in names:
+            if not filecmp.cmp(os.path.join(tmp, name),
+                               os.path.join(again, name), shallow=False):
+                raise AssertionError(f"lab cache: {name} does not rewrite "
+                                     "byte-identically")
+        nbytes = os.path.getsize(os.path.join(tmp, "bench.index"))
+    for layout in ("chunk", "quad"):
+        lab_index.engine, lab_index.scan_layout = "fused", layout
+        d, l = lab_index.search(queries, params)
+        r = results[layout]
+        if not (np.array_equal(d, r["dists"])
+                and np.array_equal(l, r["labels"])):
+            raise AssertionError(f"index read from disk: {layout} search "
+                                 "differs from phase 4's")
+    print(f"[lab] cache {names}: bench.index {nbytes} B written in "
+          f"{t_write:.3f} s, read in {t_read:.3f} s; every file rewrites "
+          f"byte-identically; the read index's search equals phase 4's on "
+          f"all {len(queries)} queries at both slot widths", flush=True)
+
+    sl.reset_launches()
+    records = kl.run(lab_index, queries, params, device, batch=SEARCH_BATCH,
+                     log=lambda m: print(m, flush=True))
+    launches = dict(sl.LAUNCHES)
+    idle = [n for n, c in launches.items() if c <= 0]
+    if idle:
+        raise AssertionError(f"lab kernels never launched: {idle}")
+    print("[lab] " + json.dumps(kl.decomposition(records)), flush=True)
+    return [{"name": f"lab_{r['name']}", "route": "cuda",
+             "source": LAB_SOURCE, "replaces": r["replaces"],
+             "launches": launches[r["variant"]],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None,
+             "blocks_per_sm": r["blocks_per_sm"],
+             "smem_bytes": r["smem_bytes"]} for r in records]
 
 
 def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
@@ -468,8 +494,8 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
-    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.ops.topk import topk_smallest
+    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
 
     params = cfg.search
     index.engine, index.scan_topk = "fused", "twophase"
@@ -515,16 +541,9 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
     for layout in ("chunk", "quad"):
         index.scan_layout = layout
         gran = index.scan_gran()
-        nslots = index._scan_slots(params, params.nprobe)
-        qc, probes = streaming_topk_l2(
-            q, index.centroids, params.nprobe,
-            block=index._coarse_block_for(B),
-            point_sqnorms=index.centroid_norms)
-        start, length, bias = tk.probe_schedule(
-            probes, qc, index.centroid_norms, st.list_offsets_t,
-            params.max_codes, nslots, gran)
-        args = (tk.build_luts(q, index.pq.codebooks), index.norm_pq.centroids,
-                st.codes_t, st.norm_codes_t, start, length, bias, gran)
+        args = (*index.scan_inputs(q, params), gran)
+        start, length, bias = args[4:7]
+        nslots = start.shape[1]
         check_min_kernel(args, tk.adc_scan_slots(*args),
                          f"main-path gran={gran}")
         mins = tk.adc_scan_slots_min(*args)
@@ -546,13 +565,13 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
             st.list_offsets_t, params.max_codes, nprobe=params.nprobe,
             k=params.k, nslots=nslots, gran=gran,
             coarse_block=index._coarse_block_for(B), two_phase=True)
-        ms = time_ms(lambda: tk.adc_scan_slots_min(*args))
-        plain_ms = time_ms(lambda: tk.adc_scan_slots_min_plain(*args),
-                           reps=5)
-        layers = {"phase1_min": ms, "minima_topk": time_ms(mtopk),
-                  "gather_rescan": time_ms(rescan),
-                  "final_topk_ids": time_ms(final),
-                  "search_core_2p": time_ms(core)}
+        ms = device_ms(lambda: tk.adc_scan_slots_min(*args))
+        plain_ms = device_ms(lambda: tk.adc_scan_slots_min_plain(*args),
+                             reps=5)
+        layers = {"phase1_min": ms, "minima_topk": device_ms(mtopk),
+                  "gather_rescan": device_ms(rescan),
+                  "final_topk_ids": device_ms(final),
+                  "search_core_2p": device_ms(core)}
         b = scan_bound(args, mins.numel(), st.code_m + 1, st.code_m + 2)
         valid = int(length.sum())
         print(f"[mkernel] main-path gran={gran} B={B} slots={nslots} lane "
@@ -737,6 +756,7 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs):
     from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.ops.grouping import query_terms
+    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
 
     gcfg = dataclasses.replace(
         cfg, index=dataclasses.replace(cfg.index, nsubc=FLAGSHIP["nsubc"],
@@ -836,13 +856,13 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs):
         topk = lambda: tg.topk_labels(dists, start, st.ids_t, params.k, gran)
         core = lambda: gi._search_fused(q, params, params.nprobe, nslots,
                                         gran, "topk", False)
-        ms = time_ms(lambda: tg.grouping_scan_slots(*args))
-        plain_ms = time_ms(lambda: tg.grouping_scan_slots_plain(*args),
-                           reps=5)
-        layers = {"coarse": time_ms(coarse), "terms": time_ms(terms),
-                  "schedule": time_ms(sched), "luts": time_ms(luts),
-                  "scan": ms, "topk_ids": time_ms(topk),
-                  "search_core": time_ms(core)}
+        ms = device_ms(lambda: tg.grouping_scan_slots(*args))
+        plain_ms = device_ms(lambda: tg.grouping_scan_slots_plain(*args),
+                             reps=5)
+        layers = {"coarse": device_ms(coarse), "terms": device_ms(terms),
+                  "schedule": device_ms(sched), "luts": device_ms(luts),
+                  "scan": ms, "topk_ids": device_ms(topk),
+                  "search_core": device_ms(core)}
         valid = int(length.sum())
         kept = int((~torch.isinf(dists)).sum())
         nbytes = (valid * (st.code_m + 2) + dists.numel() * 4

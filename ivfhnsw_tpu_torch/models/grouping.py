@@ -134,6 +134,23 @@ class IVFADCGroupingIndex(IVFADCIndex):
         idx.inter_centroid_dists = idx._tensor(inter_centroid_dists)
         return idx
 
+    def write(self, path: str, do_trunc: bool = True) -> None:
+        """Not ported yet: the grouping index has its own ``.index`` layout
+        (the JAX package's ``IVFADCGroupingIndex.write``), not IVFADC's."""
+        raise NotImplementedError("the grouping .index format is not ported "
+                                  "yet")
+
+    def read(self, path: str) -> None:
+        """Not ported yet (see :meth:`write`)."""
+        raise NotImplementedError("the grouping .index format is not ported "
+                                  "yet")
+
+    def scan_inputs(self, q, params, gran=None):
+        """Unsupported: the grouping scan takes other inputs
+        (``ops.cuda.grouping_scan.search_core``), not IVFADC's."""
+        raise NotImplementedError("scan_inputs builds the IVFADC scan's "
+                                  "inputs; the grouping index has its own")
+
     def enable_routed_coarse(self, *args, **kwargs):
         """Unsupported: the grouping engines take exact probe selection
         only, so building the routed structure would be wasted work. Fail
@@ -285,15 +302,17 @@ class IVFADCGroupingIndex(IVFADCIndex):
                                               self.nc):].sum())
         return _round_up(max(budget, 128), 128)
 
-    def _scan_slots(self, params: SearchParams, nprobe: int) -> int:
-        """Slot count of the fused engine. A probe's whole group takes slots
+    def _scan_slots(self, params: SearchParams, nprobe: int,
+                    gran: int | None = None) -> int:
+        """Slot count of the fused engine at slot width ``gran`` (default:
+        the resolved layout's). A probe's whole group takes slots
         while the budget counts unpruned codes, so under pruning many probes
         can each demand their full group: the exact worst case is the slots
         of the nprobe largest groups. Without pruning the budget also bounds
         it by (max_codes + largest group) / gran + nprobe + 1. Capped by
         ``params.scan_budget`` (lanes), which drops the farthest probes'
         tails."""
-        gran = self.scan_gran()
+        gran = gran or self.scan_gran()
         gsizes = self._grouped().group_sizes
         slots = -(-gsizes // gran)
         nslots = int(np.sort(slots)[-min(nprobe, slots.size):].sum())

@@ -17,7 +17,10 @@ core with engines
 - ``"auto"`` — ``"fused"``;
 
 ``scan_slot_demand`` (profiled slot counts), ``search_precomputed``,
-``search_per_probe`` and ``search_enn``.
+``search_per_probe`` and ``search_enn``; and the file IO: ``write`` /
+``read`` (the reference's ``.index`` format, byte-identical to the JAX
+package's), ``save_quantizers`` / ``load_quantizers`` (faiss ``.pq`` and
+``.opq``) and ``load_centroids`` (``.fvecs``).
 
 Every tensor of an index lives on the ``device`` it was created with; the
 fused engine runs its scan kernels on a CUDA device and the kernels' plain
@@ -37,10 +40,12 @@ from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu_torch.ops.grouping import probe_budget
 from ivfhnsw_tpu_torch.ops.kmeans import kmeans
 from ivfhnsw_tpu_torch.ops.opq import (apply_rotation,
-                                       apply_rotation_transpose, train_opq)
+                                       apply_rotation_transpose, load_rotation,
+                                       save_rotation, train_opq)
 from ivfhnsw_tpu_torch.ops.pq import (ENCODE_ROWS, NormQuantizer,
                                       ProductQuantizer, _pq_ip_luts)
 from ivfhnsw_tpu_torch.ops.topk import topk_smallest
+from ivfhnsw_tpu_torch.utils import io
 from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
 
 # Average codes per list at and above which "auto" picks 1024-code slots
@@ -52,6 +57,13 @@ COARSE_BLOCK = 16384
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def read_index_header(path: str) -> tuple[int, int]:
+    """(d, nc) from the first 16 bytes of an ``.index`` file."""
+    with open(path, "rb") as f:
+        d, nc = (int(v) for v in np.fromfile(f, "<u8", 2))
+    return d, nc
 
 
 class IVFADCIndex:
@@ -104,11 +116,7 @@ class IVFADCIndex:
         idx.norm_pq.centroids = idx._tensor(norm_centroids)
         if opq_R is not None:
             idx.opq_R = idx._tensor(opq_R)
-        offsets = np.asarray(list_offsets, np.int64)
-        keys = np.repeat(np.arange(len(offsets) - 1, dtype=np.int32),
-                         np.diff(offsets))
-        idx.builder.add(keys, ids, codes, norm_codes)
-        idx.finalize()
+        idx._seed_builder(codes, ids, norm_codes, list_offsets)
         return idx
 
     def _tensor(self, x) -> torch.Tensor:
@@ -149,6 +157,11 @@ class IVFADCIndex:
                              f"({self.nc}, {self.d})")
         self.centroids = centroids
         self.compute_centroid_norms()
+
+    def load_centroids(self, path: str) -> None:
+        """Install the coarse centroids of an ``.fvecs`` file (nc records of
+        dimension d)."""
+        self.set_centroids(io.read_xvec_fvec(path, self.d, self.nc))
 
     def compute_centroid_norms(self) -> None:
         """IndexIVF_HNSW.cpp:781-787."""
@@ -269,6 +282,17 @@ class IVFADCIndex:
     def finalize(self) -> None:
         self.store = self.builder.finalize(self.device)
 
+    def _seed_builder(self, codes, ids, norm_codes, list_offsets) -> None:
+        """Refill the builder with a finalized store's flat arrays (sorted by
+        list) and finalize it, so later ``add_batch`` + ``finalize`` calls
+        extend that store."""
+        offsets = np.asarray(list_offsets, np.int64)
+        keys = np.repeat(np.arange(len(offsets) - 1, dtype=np.int32),
+                         np.diff(offsets))
+        self.builder = PostingListBuilder(len(offsets) - 1, self.config.pq_m)
+        self.builder.add(keys, ids, codes, norm_codes)
+        self.finalize()
+
     def _ensure_store(self) -> PostingListStore:
         if self.store is None:
             self.finalize()
@@ -319,13 +343,14 @@ class IVFADCIndex:
         """Codes per fused-engine slot under the resolved layout."""
         return fused.RCHUNK if self._resolve_layout() == "quad" else fused.CHUNK
 
-    def _scan_slots(self, params: SearchParams, nprobe: int) -> int:
-        """Slot count of the fused engine (the JAX package's _pallas_nch):
-        the worst case of the max_codes budget, capped by
-        ``params.scan_budget`` (lanes); slots beyond the cap drop the
-        farthest probes' tails."""
+    def _scan_slots(self, params: SearchParams, nprobe: int,
+                    gran: int | None = None) -> int:
+        """Slot count of the fused engine (the JAX package's _pallas_nch) at
+        slot width ``gran`` (default: the resolved layout's): the worst case
+        of the max_codes budget, capped by ``params.scan_budget`` (lanes);
+        slots beyond the cap drop the farthest probes' tails."""
         mx = self._ensure_store().max_list_size()
-        gran = self.scan_gran()
+        gran = gran or self.scan_gran()
         if params.max_codes and params.max_codes > 0:
             nslots = (params.max_codes + mx) // gran + nprobe + 1
         else:
@@ -379,16 +404,39 @@ class IVFADCIndex:
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
                       exact_reduce: str, two_phase: bool):
-        """Fused engine: ``ops.cuda.adc_scan.search_core``."""
+        """Fused engine: ``ops.cuda.adc_scan.search_core``, as
+        :meth:`_fused_inputs` then ``scan_topk``."""
+        args = self._fused_inputs(q, params, nprobe, nslots, gran,
+                                  exact_reduce)
+        return fused.scan_topk(args, self.store.ids_t, params.k, gran,
+                               two_phase)
+
+    def _fused_inputs(self, q: torch.Tensor, params: SearchParams,
+                      nprobe: int, nslots: int, gran: int,
+                      exact_reduce: str) -> tuple:
+        """``ops.cuda.adc_scan.scan_inputs`` of batch ``q`` over this
+        index."""
         store = self.store
-        return fused.search_core(
+        return fused.scan_inputs(
             q, self.centroids, self.centroid_norms, self.pq.codebooks,
-            self.norm_pq.centroids, store.codes_t, store.ids_t,
-            store.norm_codes_t, store.list_offsets_t, params.max_codes,
-            nprobe=nprobe, k=params.k, nslots=nslots, gran=gran,
+            self.norm_pq.centroids, store.codes_t, store.norm_codes_t,
+            store.list_offsets_t, params.max_codes, nprobe=nprobe,
+            nslots=nslots, gran=gran,
             coarse_block=self._coarse_block_for(q.shape[0]),
-            exact_reduce=exact_reduce, lut_queries=self._rotate(q),
-            two_phase=two_phase)
+            exact_reduce=exact_reduce, lut_queries=self._rotate(q))
+
+    def scan_inputs(self, q: torch.Tensor, params: SearchParams,
+                    gran: int | None = None) -> tuple:
+        """The fused engine's scan inputs (lut, norm_tab, codes,
+        norm_codes, start, length, bias) for batch ``q`` [B, d] on this
+        index's device under ``params``, at slot width ``gran`` (default:
+        the resolved layout's), as a search of that batch builds them."""
+        self._ensure_store()
+        nprobe = min(params.nprobe, self.nc)
+        gran = gran or self.scan_gran()
+        return self._fused_inputs(q, params, nprobe,
+                                  self._scan_slots(params, nprobe, gran),
+                                  gran, self._exact_reduce(params))
 
     def _default_params(self) -> SearchParams:
         return SearchParams(k=10, nprobe=self.nprobe,
@@ -546,3 +594,64 @@ class IVFADCIndex:
         Returns (dists [n], labels [n]) on the host."""
         d, l = self.search(x, SearchParams(k=1, nprobe=1, max_codes=0))
         return d[:, 0], l[:, 0]
+
+    # ------------------------------------------------------------------
+    # Serialization: the reference's .index format (IndexIVF_HNSW.cpp:
+    # 637-669 write / :757-779 read), byte-identical to the JAX package's
+    # ``IVFADCIndex.write``:
+    # [u64 d | u64 nc | nc x lenvec<u32> ids | nc x lenvec<u8> codes |
+    #  nc x lenvec<u8> norm_codes | lenvec<f32> centroid_norms]
+    # where lenvec<T> = [u32 count | count*T].
+    # ------------------------------------------------------------------
+
+    def write(self, path: str, do_trunc: bool = True) -> None:
+        store = self._ensure_store()
+        sizes = np.diff(store.list_offsets.astype(np.int64))
+        with open(path, "wb" if do_trunc else "ab") as f:
+            io.write_variable(f, self.d, "<u8")
+            io.write_variable(f, self.nc, "<u8")
+            io.write_len_series(f, store.ids.astype("<u4"), sizes)
+            io.write_len_series(f, store.codes, sizes * self.config.pq_m)
+            io.write_len_series(f, store.norm_codes, sizes)
+            io.write_len_vector(
+                f, self.centroid_norms.cpu().numpy().astype("<f4"))
+
+    def read(self, path: str) -> None:
+        """Load the posting lists of an ``.index`` file whose (d, nc) equal
+        this index's config (else ValueError), with their tensors on this
+        index's device; the builder is seeded from them, so ``add_batch`` +
+        ``finalize`` extend the store. The trailing centroid norms, when the
+        file has all nc of them, replace this index's."""
+        buf = io.read_file_u8(path)
+        d, nc = (int(v) for v in buf[:16].view("<u8"))
+        if (d, nc) != (self.d, self.nc):
+            raise ValueError(f"index file (d={d}, nc={nc}) != config "
+                             f"({self.d}, {self.nc})")
+        ids, counts, pos = io.read_len_series(buf, 16, nc, "<u4")
+        codes, _, pos = io.read_len_series(buf, pos, nc, "u1")
+        norm_codes, _, pos = io.read_len_series(buf, pos, nc, "u1")
+        offsets = np.zeros(nc + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        self._seed_builder(codes.reshape(-1, self.config.pq_m),
+                           ids.astype(np.int32), norm_codes, offsets)
+        if buf.size >= pos + 4:
+            n_norms = int(buf[pos:pos + 4].view("<u4")[0])
+            norms = buf[pos + 4:pos + 4 + 4 * n_norms].view("<f4")
+            if norms.size == nc:
+                self.centroid_norms = self._tensor(norms.copy())
+
+    # -- quantizer artifacts ------------------------------------------------
+
+    def save_quantizers(self, path_pq: str, path_norm_pq: str,
+                        path_opq: str = "") -> None:
+        self.pq.save(path_pq)
+        self.norm_pq.save(path_norm_pq)
+        if self.do_opq and path_opq:
+            save_rotation(path_opq, self.opq_R)
+
+    def load_quantizers(self, path_pq: str, path_norm_pq: str,
+                        path_opq: str = "") -> None:
+        self.pq = ProductQuantizer.load(path_pq, self.device)
+        self.norm_pq = NormQuantizer.load(path_norm_pq, self.device)
+        if self.do_opq and path_opq:
+            self.opq_R = load_rotation(path_opq, self.device)

@@ -267,6 +267,24 @@ def search_core(queries: torch.Tensor, centroids: torch.Tensor,
     top-k (same results: distances exact, labels may differ at ties).
     Returns (dists [B, k] f32 ascending, labels [B, k] int64, -1 where the
     distance is +inf)."""
+    args = scan_inputs(queries, centroids, centroid_norms, codebooks,
+                       norm_centroids, codes, norm_codes, list_offsets,
+                       max_codes, nprobe=nprobe, nslots=nslots, gran=gran,
+                       coarse_block=coarse_block, exact_reduce=exact_reduce,
+                       lut_queries=lut_queries)
+    return scan_topk(args, ids, k, gran, two_phase)
+
+
+def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
+                centroid_norms: torch.Tensor, codebooks: torch.Tensor,
+                norm_centroids: torch.Tensor, codes: torch.Tensor,
+                norm_codes: torch.Tensor, list_offsets: torch.Tensor,
+                max_codes: int, *, nprobe: int, nslots: int, gran: int,
+                coarse_block: int, exact_reduce: str = "topk",
+                lut_queries: torch.Tensor | None = None) -> tuple:
+    """Steps 1-3 of :func:`search_core` (coarse, schedule, LUTs): the scan
+    inputs (lut, norm_tab, codes, norm_codes, start, length, bias) in
+    :func:`adc_scan_slots`' order."""
     qc_dists, probes = streaming_topk_l2(
         queries, centroids, nprobe, block=coarse_block,
         point_sqnorms=centroid_norms, exact_reduce=exact_reduce)
@@ -275,10 +293,16 @@ def search_core(queries: torch.Tensor, centroids: torch.Tensor,
                                          gran)
     lut = build_luts(queries if lut_queries is None else lut_queries,
                      codebooks)
-    args = (lut, norm_centroids, codes, norm_codes, start, length, bias)
+    return (lut, norm_centroids, codes, norm_codes, start, length, bias)
+
+
+def scan_topk(args: tuple, ids: torch.Tensor, k: int, gran: int,
+              two_phase: bool = False):
+    """Steps 4-6 of :func:`search_core` over :func:`scan_inputs`' ``args``:
+    the wide scan + bin-32 top-k, or :func:`two_phase_topk`."""
     if two_phase:
         return two_phase_topk(*args, ids, k, gran)
-    return topk_labels(adc_scan_slots(*args, gran), start, ids, k, gran)
+    return topk_labels(adc_scan_slots(*args, gran), args[4], ids, k, gran)
 
 
 def topk_labels(dists: torch.Tensor, start: torch.Tensor, ids: torch.Tensor,

@@ -5,15 +5,18 @@ faiss::OPQMatrix::train, IndexIVF_HNSW.cpp:548-554).
 Convention as faiss LinearTransform and the JAX package: the rotation is
 applied as ``y = x @ R.T`` and undone as ``x = y @ R``. Random draws come
 from an explicit ``torch.Generator``, so R differs from the JAX package's
-for the same seed; the two are compared by reconstruction error. The file
-formats (``save_rotation``/``load_rotation``) are not ported yet.
+for the same seed; the two are compared by reconstruction error.
+``save_rotation``/``load_rotation`` speak faiss's ``LinearTransform``
+layout (``utils/faiss_io.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ivfhnsw_tpu_torch.ops.pq import ProductQuantizer
+from ivfhnsw_tpu_torch.utils import faiss_io
 
 
 def random_rotation(generator: torch.Generator, d: int) -> torch.Tensor:
@@ -58,3 +61,25 @@ def train_opq(generator: torch.Generator, data: torch.Tensor, M: int,
     pq.train(generator, apply_rotation(data, R), niter=final_pq_niter,
              init=init)
     return R, pq
+
+
+def save_rotation(path: str, R: torch.Tensor) -> None:
+    """faiss write_VectorTransform layout (the generic LinearTransform
+    record that faiss::OPQMatrix serializes to), so ``.opq`` artifacts
+    interchange with the reference. A == R, since faiss applies y = A @ x
+    and the port x @ R.T."""
+    faiss_io.write_linear_transform(path, R.cpu().numpy())
+
+
+def load_rotation(path: str, device) -> torch.Tensor:
+    """R [d, d] f32 on ``device`` from a faiss ``.opq`` file (or the JAX
+    package's legacy [u32 d | f32 R] file)."""
+    if faiss_io.is_faiss_vector_transform(path):
+        A, b = faiss_io.read_vector_transform(path)
+        if b is not None:
+            raise ValueError("OPQ rotation with bias is not supported")
+        return torch.tensor(A, device=device)
+    with open(path, "rb") as f:
+        d = int(np.fromfile(f, "<u4", 1)[0])
+        R = np.fromfile(f, "<f4", d * d).reshape(d, d)
+    return torch.tensor(R, device=device)

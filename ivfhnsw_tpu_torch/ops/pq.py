@@ -2,15 +2,18 @@
 ``ivfhnsw_tpu/ops/pq.py`` (faiss ProductQuantizer train / compute_codes /
 decode / compute_inner_prod_table, and the reference's 1-byte norm_pq).
 
-All M subspace problems are batched along a leading M axis. File IO (the
-faiss ``.pq`` layout) is not ported yet.
+All M subspace problems are batched along a leading M axis. ``save`` and
+``load`` speak the faiss ``.pq`` layout (``utils/faiss_io.py``), so the
+artifacts interchange with the JAX package and the reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ivfhnsw_tpu_torch.ops.kmeans import kmeans_batched
+from ivfhnsw_tpu_torch.utils import faiss_io
 
 # Rows encoded per step: bounds the [M, rows, ksub] f32 distance temp to
 # 1 GB at M=16 (a 1M-row batch in one step would need 16 GB).
@@ -79,6 +82,28 @@ class ProductQuantizer:
     def ip_luts(self, q: torch.Tensor) -> torch.Tensor:
         return _pq_ip_luts(q.float(), self.codebooks)
 
+    # -- IO: faiss write_ProductQuantizer byte layout; load() also sniffs
+    # the JAX package's round-1 legacy header for old caches. --
+
+    def save(self, path: str) -> None:
+        faiss_io.write_product_quantizer(path, self.codebooks.cpu().numpy())
+
+    @classmethod
+    def load(cls, path: str, device) -> "ProductQuantizer":
+        """The quantizer of a ``.pq`` file, its codebooks on ``device``."""
+        if faiss_io.is_faiss_pq(path):
+            cb = faiss_io.read_product_quantizer(path)
+            M, ksub, dsub = cb.shape
+            pq = cls(M * dsub, M, ksub)
+        else:  # legacy [u32 d | u32 M | u32 ksub | f32 blob]
+            with open(path, "rb") as f:
+                d, M, ksub = (int(v) for v in np.fromfile(f, "<u4", 3))
+                pq = cls(d, M, ksub)
+                cb = np.fromfile(f, "<f4",
+                                 M * ksub * (d // M)).reshape(M, ksub, d // M)
+        pq.codebooks = torch.tensor(cb, device=device)
+        return pq
+
 
 class NormQuantizer:
     """1-byte scalar quantizer for squared L2 norms — the reference's
@@ -108,3 +133,25 @@ class NormQuantizer:
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         return self.centroids[codes.long()]
+
+    def save(self, path: str) -> None:
+        """faiss layout: the reference's norm quantizer is a
+        ProductQuantizer(1, 1, 8), i.e. d=M=1, nbits=8, 256 centroids."""
+        faiss_io.write_product_quantizer(
+            path, self.centroids.cpu().numpy().reshape(1, -1, 1))
+
+    @classmethod
+    def load(cls, path: str, device) -> "NormQuantizer":
+        """The quantizer of a ``.norm_pq`` file, its centroids sorted
+        ascending (as ``train`` leaves them) on ``device``."""
+        if faiss_io.is_faiss_pq(path):
+            cb = faiss_io.read_product_quantizer(path)
+            nq = cls(cb.shape[1])
+            cents = np.sort(cb.reshape(-1))
+        else:  # legacy [u32 ksub | f32 blob], kept in file order
+            with open(path, "rb") as f:
+                ksub = int(np.fromfile(f, "<u4", 1)[0])
+                nq = cls(ksub)
+                cents = np.fromfile(f, "<f4", ksub)
+        nq.centroids = torch.tensor(cents, device=device)
+        return nq

@@ -198,6 +198,27 @@ def test_search_core_matches_pallas_search_core(built, layout, max_codes):
     assert_same(np.asarray(jd_), np.asarray(jl_), td_.numpy(), tl_.numpy())
 
 
+@pytest.mark.parametrize("gran", [256, 1024])
+def test_index_scan_inputs_feed_the_fused_engine(built, gran):
+    """IVFADCIndex.scan_inputs at an explicit slot width is what the fused
+    engine scans under that layout: _scan_slots' slot count (JAX's rule),
+    the store's own tensors, and scan_topk over it equal to the index's
+    search."""
+    j, t, q = built
+    p = SearchParams(k=10, nprobe=8, max_codes=300)
+    args = t.scan_inputs(_t(q), p, gran)
+    assert args[4].shape == (len(q), _nslots(j, t, gran, 300, 8))
+    assert args[2] is t.store.codes_t and args[3] is t.store.norm_codes_t
+    d, lab = tk.scan_topk(args, t.store.ids_t, 10, gran)
+    t.scan_layout = _layout(gran)
+    try:
+        d2, lab2 = t.search(q, p)
+    finally:
+        t.scan_layout = "auto"
+    np.testing.assert_array_equal(d.numpy(), d2)
+    np.testing.assert_array_equal(lab.numpy(), lab2)
+
+
 @pytest.mark.parametrize("max_codes", [0, 300])
 def test_probe_positions_match_jax(built, max_codes):
     j, t, q = built

@@ -325,6 +325,8 @@ def test_search_guards(built):
         t.enable_routed_coarse()
     with pytest.raises(NotImplementedError):
         t.search(queries, SearchParams(k=5, coarse_mode="routed"))
+    with pytest.raises(NotImplementedError):   # IVFADC's, not the grouping's
+        t.scan_inputs(torch.from_numpy(queries), SearchParams(k=5))
     with pytest.raises(RuntimeError):
         IVFADCGroupingIndex(IndexConfig(**CFG), "cpu").search(queries)
     with pytest.raises(ValueError):
