@@ -32,6 +32,16 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    both timed) and each layer of the two-phase search_core timed; then
    whole-search walls of two-phase against wide at batch 1024 and 8192,
    in turns;
+6b. banks (tools/bank_probe.py): on the main path's schedule for one
+   8192-query batch at both widths, the wide and min kernels, the lab's
+   direct* variants (those kernels as first ported) and its skew* variants
+   (a bank-skewed LUT) over
+   three stores that differ only in the shared-memory banks their lookups
+   hit (the real codes; r % 32, no conflict in a row-major LUT; 32 *
+   (r % 8), 8 words in one bank), and over the second with every slot at
+   row 0 (codes from L1); each torch.equal to its plain version on each,
+   then timed, with the staging of the LUT alone, and each production
+   kernel against its direct twin in turns; no time is asserted;
 7. determinism: k-means at the primary point (200k learn rows, nc=4096,
    15 iterations) twice from one seed gives the same centroids, bit for bit;
 8. the Grouping+Pruning+OPQ main path at the flagship point (the JAX
@@ -61,13 +71,18 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    (torch.equal to its plain version and, for a full-function variant, to
    adc_scan_slots / adc_scan_slots_min) and timed, with every lab launch
    count reset before and required to grow; a [lab] line with the
-   compute-only / copy-only / LUT-copies decomposition.
+   compute-only / copy-only / LUT-copies decomposition. The skew variants
+   add a lane's rows in a rotated order and are held to the production
+   kernels within RTOL / ATOL instead.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
 (each input read once: LUTs, norm table, the schedule and the store rows
 the schedule touches; the output written once) over 3.35 TB/s and its f32
-operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W.
+operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; and
+lookup_ms, the time of its shared-memory table lookups at one word per bank
+per clock on every SM (SM count x 32 x the maximum SM clock that nvidia-smi
+reports), which is not part of the bound.
 
 Then one JSON line of kernel results, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
@@ -104,8 +119,8 @@ SEARCH_BATCH = 8192  # IVFADCIndex.search's default batch
 LAB_SOURCE = "ivfhnsw_tpu_torch/csrc/scan_lab.cu"
 
 
-def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def smi_line(fields: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
@@ -228,7 +243,10 @@ def main() -> int:
     # 1. device
     device = torch.device("cuda", 0)
     smi = smi_line()
-    print(f"[device] {smi}", flush=True)
+    print(f"[device] {smi}, clocks.max.sm "
+          f"{smi_line('clocks.max.sm')}, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs",
+          flush=True)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
@@ -412,6 +430,11 @@ def run(device, p: dict) -> list:
     # 6. the two-phase top-k path over the same index
     kernels += run_two_phase(device, cfg, ds, index, results)
 
+    # 6b. the scan kernels over stores that differ only in their banks
+    from ivfhnsw_tpu_torch.tools import bank_probe
+    bank_probe.run(index, ds.queries, params, device, batch=SEARCH_BATCH,
+                   log=lambda m: print(m, flush=True))
+
     # 7. determinism of k-means at the primary point
     phase_determinism(ds, p, device)
 
@@ -480,7 +503,8 @@ def run_lab(device, cfg, ds, index, results: dict) -> list:
              "launches": launches[r["variant"]],
              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": None,
+             "bound_by": r["bound_by"], "lookup_ms": r["lookup_ms"],
+             "library_ms": None,
              "blocks_per_sm": r["blocks_per_sm"],
              "smem_bytes": r["smem_bytes"]} for r in records]
 
@@ -577,8 +601,8 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
         print(f"[mkernel] main-path gran={gran} B={B} slots={nslots} lane "
               f"fill {valid / (B * nslots * gran):.3f}, rescan {ksel} slots: "
               f"kernel {ms:.4f} ms (bound {b['bound_ms']:.4f} ms by "
-              f"{b['bound_by']}), plain {plain_ms:.4f} ms, max_abs_err "
-              f"{err!r}", flush=True)
+              f"{b['bound_by']}, lookups {b['lookup_ms']:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, max_abs_err {err!r}", flush=True)
         print(f"[tplayers] gran={gran} B={B} ms " + json.dumps(
             {k: round(v, 4) for k, v in layers.items()}), flush=True)
         kernels.append({"name": f"adc_scan_slots_min_gran{gran}",
@@ -883,7 +907,8 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs):
                                      dists.numel(),
                                      st.code_m + 2, st.code_m + 2,
                                      extra_bytes=t2.numel() * 4
-                                     + seg.numel() * 4),
+                                     + seg.numel() * 4,
+                                     lookups_per_lane=st.code_m + 2),
                         "library_ms": None})
     return kernels, gi, results
 

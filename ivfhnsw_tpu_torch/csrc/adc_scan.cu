@@ -41,23 +41,41 @@
 // probe_schedule builds such schedules).
 //
 // What bounds them on an H100. Per valid lane a kernel reads M+1 code bytes
-// (17 B at M=16) from device memory or L2 and does M+1 random 4-byte lookups
-// in the shared-memory LUT. The wide kernel also writes 4 B for EVERY lane
-// of the padded [B, nslots*gran] output, empty and tail lanes included, so
-// the wide f32 output and the shared-memory gather rate (random codes hit
-// random banks) bound it, rather than the 17 B/code read. The min kernel
-// writes 4 B per slot (gran times less), so its byte bound is the LUTs
-// (B x 16 KB) and the touched store rows; in practice the shared-memory
-// lookups bound it (M+1 per valid lane, at most 32 per clock per SM).
+// (17 B at M=16) from L2 or device memory and does M+1 random 4-byte lookups
+// in the shared-memory LUT, at five machine operations each (shift, mask,
+// add the table's base, load, add). The wide kernel also writes 4 B for
+// EVERY lane of the padded [B, nslots*gran] output, empty and tail lanes
+// included; that output is its byte bound. The min kernel writes 4 B per
+// slot, so its byte bound is the LUTs (B x 16 KB) and the touched store
+// rows, ten times below its time. Measured (PERF.md, tools/bank_probe.py):
+// over a store whose codes never meet in a bank the min kernel runs 1.2x
+// faster and the wide kernel no faster, so bank conflicts of the random
+// lookups (all lanes of a warp read one LUT row, the bank is code mod 32)
+// cost the min kernel a fifth and the wide kernel nothing; keeping two rows
+// per lane in flight or prefetching the next slot's schedule changes
+// neither, and codes served from L1 instead of L2 gain a few percent. Right
+// behind the conflicts stands the schedulers' rate: 96 machine operations
+// per warp and code on 4 schedulers per SM come to 0.25 ms of the min
+// kernel's 0.47.
+// A bank-skewed LUT that removes the conflicts (the skew variants of
+// csrc/scan_lab.cu) pays for them in operations and registers: about a
+// tenth faster as the min kernel, 30% slower as the wide kernel at 256-code
+// slots, and the two kernels must share one summation order, so it stays in
+// the lab.
 //
 // What the design does about it. One thread block per query stages that
 // query's M x 256 LUT and the norm table in shared memory once (17 KB at
-// M=16) and then walks all of the query's slots, so LUT bytes come from
-// device memory once per query; reloading them per 256-code slot would read
-// ~4x more LUT bytes than code bytes. At M=16 a lane's code is one 16-byte
-// load. Row addresses are 64-bit (start*M passes 2^31 at ~134M codes).
+// M=16: 8 blocks of 8 warps per SM, 32 registers a thread) and then walks
+// all of the query's slots, so LUT bytes come from device memory once per
+// query; reloading them per 256-code slot would read ~4x more LUT bytes than
+// code bytes. At M=16 a lane's code is one 16-byte load and every LUT row's
+// offset is an immediate. Row addresses are 64-bit (start*M passes 2^31 at
+// ~134M codes).
 //   wide: threads own lanes tid, tid+blockDim, ..., so code reads and output
-//         stores are coalesced; empty slots cost only their +inf stores.
+//         stores are coalesced. The output streams through L2 once
+//         (st.global.cs) and should not evict the code store; a run of empty
+//         slots (half of a schedule's slots) is one fill of 16-byte +inf
+//         stores by all threads.
 //   min:  each warp takes slots warp, warp+nwarps, ...; its lanes stride
 //         the slot's codes (coalesced rows), keep a running fminf, and a
 //         __shfl_xor_sync tree reduces the warp; lane 0 stores one float.
@@ -110,6 +128,23 @@ __device__ __forceinline__ float lane_sum(const float* s_lut,
   return acc;
 }
 
+// All threads: n floats of +inf at o, by 16-byte streaming stores where o
+// and n allow.
+__device__ __forceinline__ void fill_inf(float* o, int64_t n) {
+  if (((reinterpret_cast<uintptr_t>(o) | static_cast<uintptr_t>(n * 4)) &
+       15u) == 0) {
+    const float4 inf4 = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+    float4* o4 = reinterpret_cast<float4*>(o);
+    for (int64_t i = threadIdx.x; i < n / 4; i += blockDim.x) {
+      __stcs(o4 + i, inf4);
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+      __stcs(o + i, INFINITY);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 adc_scan_slots_kernel(const float* __restrict__ lut,           // [B, M, 256]
                       const float* __restrict__ norm_tab,      // [256]
@@ -130,14 +165,21 @@ adc_scan_slots_kernel(const float* __restrict__ lut,           // [B, M, 256]
   const int64_t sb = b * nslots;
   float* out_b = out + sb * gran;
   for (int s = 0; s < nslots; ++s) {
-    const int64_t st = start[sb + s];
     const int ln = len[sb + s];
-    const float bs = bias[sb + s];
     float* o = out_b + static_cast<int64_t>(s) * gran;
+    if (ln <= 0) {  // this slot and the empty ones after it, in one fill
+      int e = s + 1;
+      while (e < nslots && len[sb + e] <= 0) ++e;
+      fill_inf(o, static_cast<int64_t>(e - s) * gran);
+      s = e - 1;
+      continue;
+    }
+    const int64_t st = start[sb + s];
+    const float bs = bias[sb + s];
     for (int l = threadIdx.x; l < gran; l += blockDim.x) {
-      o[l] = l < ln ? lane_sum(s_lut, s_norm, codes, norm_codes, st + l, bs,
-                               M, vec16)
-                    : INFINITY;
+      __stcs(o + l, l < ln ? lane_sum(s_lut, s_norm, codes, norm_codes,
+                                      st + l, bs, M, vec16)
+                           : INFINITY);
     }
   }
 }

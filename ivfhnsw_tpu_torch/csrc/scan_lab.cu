@@ -21,14 +21,57 @@
 // never the TPU tile formats. One thread block per query, as in production.
 //
 // The full-function variants compute adc_scan.cu's function (the lane sum
-// bias, norm, m = 0..M-1 in that order), so their output equals the
-// production kernels' bit for bit:
+// bias, norm, m = 0..M-1 in that order; the skew kernels in a rotated order),
+// so their output equals the production kernels' bit for bit (the skew
+// kernels': within f32 rounding):
 //
 //   wide: out[b, s*gran + l] = bias + norm_tab[n_r] + sum_m lut[b,m,c_{r,m}]
 //                              for l < len[b,s] (r = start[b,s] + l), else +inf
 //   min:  out[b, s] = min over l < len[b,s] of the same, +inf for an empty slot
 //
-// Two kernel templates:
+// The direct kernels (direct256, direct1024, direct256_min, direct1024_min)
+// are K1-K4 of adc_scan.cu as first ported: the query's LUT staged row-major
+// (entry k of row m at word m*256 + k), direct 16-byte code loads from the
+// flat store, no ring, no barrier in the slot loop, plain stores, the sum in
+// the order bias, norm, m = 0..M-1. All lanes of a warp read the same row at
+// 32 random codes, so the bank is code mod 32 and a lookup is replayed once
+// per distinct word in its fullest bank. They keep the first design
+// measurable beside the production kernels on one card (the production wide
+// kernel has since gained streaming stores and one fill per run of empty
+// slots; the production min kernel still has this body).
+//
+// The skew kernels (skew256, skew1024, skew256_min, skew1024_min) compute the
+// same function over a bank-skewed LUT, for M dividing 32 (M = 4, 8, 16, 32;
+// ops/cuda/scan_lab.py::skewed). With C = 32/M,
+//   - shared memory holds C interleaved copies of the query's LUT: entry k of
+//     row m, copy c, at word k*32 + m*C + c (scan_lab.py::skew_word). Row m
+//     of copy c lives in bank m*C + c alone; 256 x 32 words = 32 KB at every
+//     such M;
+//   - lane l of a slot (the l of out[b, s*gran + l]) has rho = l mod M and
+//     c = (l / M) mod C, and at step t = 0..M-1 adds row (t + rho) mod M of
+//     copy c at its own code byte (t + rho) mod M (scan_lab.py::lane_row). A
+//     warp holds 32 consecutive l, so every (rho, c) once: at each step its
+//     32 lanes read 32 different (row, copy) pairs, 32 different banks,
+//     whatever the codes. One pass per lookup;
+//   - rho and c are fixed per thread, so the M shared-memory addresses of
+//     the rows' first entries are registers computed once, and the code's
+//     bytes are rotated right by rho once per code; byte t then comes out
+//     with a compile-time selector. No register array is indexed
+//     dynamically;
+//   - the summation order is therefore bias, norm, then rows rho, rho+1, ...,
+//     M-1, 0, ..., rho-1 (the plain version's rotate=True), which agrees
+//     with the production order within f32 rounding, not bit for bit. A slot
+//     rescanned alone keeps each row's l, hence its sum;
+//   - the norm table is read through the read-only global path (1 KB,
+//     L1-resident), off the shared-memory pipe, and the next code's 16-byte
+//     load, norm byte and norm value are started before the current code's
+//     lookups.
+// The layout removes the conflicts (its time does not depend on the codes)
+// and pays in machine operations (the rotation, 12 per code at M=16) and
+// registers (48 at M=16: 5 blocks per SM against 8); PERF.md has what that
+// comes to.
+//
+// Two kernel templates for the rest:
 //
 // lab_runs_kernel<DEPTH> (L1, gran 1024). A TPU run is four tiles in one DMA
 // with one semaphore. Here one thread issues one cp.async.bulk per slot for
@@ -539,9 +582,9 @@ __global__ void __launch_bounds__(THREADS) lab_runs_kernel(Args a) {
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const Args& a, int B, int smem_floor,
-           void* stream, int* info) {
+template <typename Kernel, typename... KArgs>
+int launch(Kernel kernel, size_t smem, int B, int nslots, int smem_floor,
+           void* stream, int* info, KArgs... kargs) {
   if (smem_floor > 0 && static_cast<size_t>(smem_floor) > smem) {
     smem = static_cast<size_t>(smem_floor);
   }
@@ -559,8 +602,8 @@ int launch(Kernel kernel, size_t smem, const Args& a, int B, int smem_floor,
     info[1] = static_cast<int>(smem);
     return static_cast<int>(e);
   }
-  if (B == 0 || a.nslots == 0) return 0;
-  kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  if (B == 0 || nslots == 0) return 0;
+  kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(kargs...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -573,7 +616,7 @@ int launch_pipe(const Args& a, int B, int smem_floor, void* stream,
       2 * SPS * NWARPS * sizeof(float));
   return launch(
       lab_pipe_kernel<GRAN, C, DEPTH, SPS, BATCHED, BRANCHLESS, MODE, EPI>,
-      smem, a, B, smem_floor, stream, info);
+      smem, B, a.nslots, smem_floor, stream, info, a);
 }
 
 template <int DEPTH>
@@ -581,7 +624,333 @@ int launch_runs(const Args& a, int B, int smem_floor, void* stream,
                 int* info) {
   const size_t smem = static_cast<size_t>(BAR_BYTES + lut_bytes(a.M, 1) +
                                           DEPTH * stage_bytes(1024, a.M));
-  return launch(lab_runs_kernel<DEPTH>, smem, a, B, smem_floor, stream, info);
+  return launch(lab_runs_kernel<DEPTH>, smem, B, a.nslots, smem_floor, stream,
+                info, a);
+}
+
+// ---- the direct kernels: K1-K4 as first ported -----------------------------
+
+// Stage the query's LUT row-major and the norm table in shared memory.
+__device__ __forceinline__ void stage_tables(float* s_lut, float* s_norm,
+                                             const float* __restrict__ lut_b,
+                                             const float* __restrict__ norm_tab,
+                                             int M) {
+  for (int i = threadIdx.x; i < M * KSUB; i += blockDim.x) s_lut[i] = lut_b[i];
+  for (int i = threadIdx.x; i < KSUB; i += blockDim.x) s_norm[i] = norm_tab[i];
+  __syncthreads();
+}
+
+// One lane's distance: bias, norm, then m = 0..M-1, every lane of a warp in
+// the same row at its own code.
+__device__ __forceinline__ float lane_sum(const float* s_lut,
+                                          const float* s_norm,
+                                          const uint8_t* __restrict__ codes,
+                                          const uint8_t* __restrict__ norm_codes,
+                                          int64_t r, float bs, int M,
+                                          int vec16) {
+  float acc = bs + s_norm[norm_codes[r]];
+  if (vec16) {
+    const uint4 c = *reinterpret_cast<const uint4*>(codes + r * 16);
+    const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        acc += s_lut[(q * 4 + t) * KSUB + ((w[q] >> (8 * t)) & 0xff)];
+      }
+    }
+  } else {
+    const uint8_t* c = codes + r * M;
+    for (int m = 0; m < M; ++m) acc += s_lut[m * KSUB + c[m]];
+  }
+  return acc;
+}
+
+// Threads own lanes tid, tid + blockDim, ... of every slot.
+__global__ void __launch_bounds__(THREADS)
+direct_wide_kernel(Args a, int gran, int vec16) {
+  extern __shared__ float smem_f[];
+  const int M = a.M, nslots = a.nslots;
+  float* s_lut = smem_f;               // M * 256
+  float* s_norm = smem_f + M * KSUB;   // 256
+
+  const int64_t b = blockIdx.x;
+  stage_tables(s_lut, s_norm, a.lut + b * M * KSUB, a.norm_tab, M);
+
+  const int64_t sb = b * nslots;
+  float* out_b = a.out + sb * gran;
+  for (int s = 0; s < nslots; ++s) {
+    const int64_t st = a.start[sb + s];
+    const int ln = a.len[sb + s];
+    const float bs = a.bias[sb + s];
+    float* o = out_b + static_cast<int64_t>(s) * gran;
+    for (int l = threadIdx.x; l < gran; l += blockDim.x) {
+      o[l] = l < ln ? lane_sum(s_lut, s_norm, a.codes, a.norm_codes, st + l,
+                               bs, M, vec16)
+                    : INFINITY;
+    }
+  }
+}
+
+// Each warp takes slots warp, warp + nwarps, ...; its lanes stride the
+// slot's codes, and a shuffle tree reduces their minima.
+__global__ void __launch_bounds__(THREADS)
+direct_min_kernel(Args a, int gran, int vec16) {
+  extern __shared__ float smem_f[];
+  const int M = a.M, nslots = a.nslots;
+  float* s_lut = smem_f;               // M * 256
+  float* s_norm = smem_f + M * KSUB;   // 256
+
+  const int64_t b = blockIdx.x;
+  stage_tables(s_lut, s_norm, a.lut + b * M * KSUB, a.norm_tab, M);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int64_t sb = b * nslots;
+  for (int s = warp; s < nslots; s += nwarps) {
+    const int ln = min(a.len[sb + s], gran);   // warp-uniform
+    float best = INFINITY;
+    if (ln > 0) {
+      const int64_t st = a.start[sb + s];
+      const float bs = a.bias[sb + s];
+      for (int l = lane; l < ln; l += 32) {
+        best = fminf(best, lane_sum(s_lut, s_norm, a.codes, a.norm_codes,
+                                    st + l, bs, M, vec16));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      best = fminf(best, __shfl_xor_sync(0xffffffffu, best, o));
+    }
+    if (lane == 0) a.out[sb + s] = best;
+  }
+}
+
+template <int EPI>
+int launch_direct(const Args& a, int B, int gran, int smem_floor,
+                  void* stream, int* info) {
+  const size_t smem = static_cast<size_t>(a.M + 1) * KSUB * sizeof(float);
+  const int vec16 = a.M == 16;  // the wrapper requires 16-byte aligned codes
+  return launch(EPI == MIN ? direct_min_kernel : direct_wide_kernel, smem, B,
+                a.nslots, smem_floor, stream, info, a, gran, vec16);
+}
+
+// ---- the skew kernels: a bank-skewed LUT ------------------------------------
+
+constexpr int BANKS = 32;
+
+// v[i] <- v[(i + r) mod N] for 0 <= r < N, N a power of two: log2(N) levels
+// of selects, every index a compile-time constant (no register array is
+// indexed dynamically).
+template <typename T, int N>
+__device__ __forceinline__ void rotate_regs(T (&v)[N], int r) {
+#pragma unroll
+  for (int b = 1; b < N; b <<= 1) {
+    const bool p = (r & b) != 0;
+    T t[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) t[i] = p ? v[(i + b) % N] : v[i];
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = t[i];
+  }
+}
+
+// What a thread keeps for the whole kernel: rho = l mod M of every lane it
+// owns, and the shared-memory address of entry 0 of (row (t + rho) mod M,
+// copy c) for each step t.
+template <int M>
+struct SkewTables {
+  int rho;
+  uint32_t addr[M];
+};
+
+// Stage the query's LUT skewed: a thread reads entry k of all M rows
+// (coalesced along k), rotates the M values left by its lane's rho in
+// registers, and stores value i to row (i + rho) mod M of copies
+// (lane / M + j) mod C, so every store of a warp covers 32
+// banks. Ends with the block's barrier.
+template <int M>
+__device__ __forceinline__ SkewTables<M> stage_skewed(
+    float* s_lut, const float* __restrict__ lut_b) {
+  constexpr int C = BANKS / M;
+  const int lane = threadIdx.x & 31;
+  const int rho = lane % M, g = lane / M;
+  for (int k = threadIdx.x; k < KSUB; k += THREADS) {
+    float v[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) v[m] = lut_b[m * KSUB + k];
+    rotate_regs(v, rho);  // v[i] = entry k of row (i + rho) mod M
+    float* e = s_lut + k * BANKS;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int m = (i + rho) % M;
+#pragma unroll
+      for (int j = 0; j < C; ++j) e[m * C + (g + j) % C] = v[i];
+    }
+  }
+  SkewTables<M> tb;
+  tb.rho = rho;
+  const uint32_t base = smem_addr(s_lut);
+#pragma unroll
+  for (int t = 0; t < M; ++t) {
+    tb.addr[t] = base + static_cast<uint32_t>((((t + rho) % M) * C + g) * 4);
+  }
+  __syncthreads();
+  return tb;
+}
+
+// A 16-byte (M = 16), 8-byte (M = 8) ... aligned code row as M/4 words.
+template <int M>
+struct CodeWords {
+  uint32_t w[M / 4];
+};
+
+template <int M>
+__device__ __forceinline__ CodeWords<M> load_words(
+    const uint8_t* __restrict__ codes, int64_t r) {
+  CodeWords<M> c;
+  const uint8_t* p = codes + r * M;
+  if constexpr (M == 4) {
+    c.w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (M == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    c.w[0] = v.x;
+    c.w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < M / 16; ++q) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[q];
+      c.w[4 * q] = v.x;
+      c.w[4 * q + 1] = v.y;
+      c.w[4 * q + 2] = v.z;
+      c.w[4 * q + 3] = v.w;
+    }
+  }
+  return c;
+}
+
+// One lane's distance from acc = bias + norm: rows (t + rho) mod M for
+// t = 0..M-1, in that order. The row is rotated right by rho bytes once
+// (word part by selects, byte part by funnel shifts), after which byte t
+// comes out with a compile-time selector.
+template <int M>
+__device__ __forceinline__ float skew_sum(const SkewTables<M>& tb,
+                                          CodeWords<M> c, float acc) {
+  constexpr int W = M / 4;
+  rotate_regs(c.w, tb.rho >> 2);
+  const int sh = (tb.rho & 3) * 8;
+  uint32_t v[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    v[i] = __funnelshift_r(c.w[i], c.w[(i + 1) % W], sh);
+  }
+#pragma unroll
+  for (int t = 0; t < M; ++t) {
+    const uint32_t x = v[t / 4];
+    const uint32_t byte = __byte_perm(x, 0, 0x4440 + t % 4);
+    float e;
+    asm volatile("ld.shared.f32 %0, [%1];\n"
+                 : "=f"(e)
+                 : "r"((byte << 7) + tb.addr[t]));
+    acc += e;
+  }
+  return acc;
+}
+
+// f(l, distance of lane l) for this thread's lanes l, l + stride, ... < lim
+// of the slot at rows st.., bias bs; the next lane's code, norm byte and
+// norm value are loaded before the current lane's lookups. Returns the
+// thread's first lane >= lim.
+template <int M, typename F>
+__device__ __forceinline__ int skew_lanes(const SkewTables<M>& tb,
+                                          const Args& a, int64_t st, float bs,
+                                          int l, int stride, int lim, F&& f) {
+  if (l >= lim) return l;
+  CodeWords<M> cur = load_words<M>(a.codes, st + l);
+  float ncur = __ldg(a.norm_tab + a.norm_codes[st + l]);
+  while (true) {
+    const int nl = l + stride;
+    const bool more = nl < lim;
+    CodeWords<M> nxt = cur;
+    float nnxt = ncur;
+    if (more) {
+      nxt = load_words<M>(a.codes, st + nl);
+      nnxt = __ldg(a.norm_tab + a.norm_codes[st + nl]);
+    }
+    f(l, skew_sum<M>(tb, cur, bs + ncur));
+    l = nl;
+    if (!more) break;
+    cur = nxt;
+    ncur = nnxt;
+  }
+  return l;
+}
+
+template <int M>
+__global__ void __launch_bounds__(THREADS)
+skew_wide_kernel(Args a, int gran) {
+  extern __shared__ float smem_f[];
+  const int nslots = a.nslots;
+  const int64_t b = blockIdx.x;
+  const SkewTables<M> tb = stage_skewed<M>(smem_f, a.lut + b * M * KSUB);
+  const int64_t sb = b * nslots;
+  for (int s = 0; s < nslots; ++s) {
+    const int ln = min(a.len[sb + s], gran);
+    float* o = a.out + (sb + s) * gran;
+    int l = threadIdx.x;
+    if (ln > 0) {
+      l = skew_lanes<M>(tb, a, a.start[sb + s], a.bias[sb + s], l, THREADS,
+                        ln, [o](int lane, float d) { __stcs(o + lane, d); });
+    }
+    for (; l < gran; l += THREADS) __stcs(o + l, INFINITY);
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(THREADS)
+skew_min_kernel(Args a, int gran) {
+  extern __shared__ float smem_f[];
+  const int nslots = a.nslots;
+  const int64_t b = blockIdx.x;
+  const SkewTables<M> tb = stage_skewed<M>(smem_f, a.lut + b * M * KSUB);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t sb = b * nslots;
+  for (int s = warp; s < nslots; s += NWARPS) {
+    const int ln = min(a.len[sb + s], gran);   // warp-uniform
+    float best = INFINITY;
+    if (ln > 0) {
+      skew_lanes<M>(tb, a, a.start[sb + s], a.bias[sb + s], lane, 32, ln,
+                    [&best](int, float d) { best = fminf(best, d); });
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      best = fminf(best, __shfl_xor_sync(0xffffffffu, best, o));
+    }
+    if (lane == 0) a.out[sb + s] = best;
+  }
+}
+
+// The skew kernels exist where M divides the 32 banks into whole words of
+// code bytes (ops/cuda/adc_scan.py::skewed); any other M is refused.
+template <int EPI>
+int launch_skew(const Args& a, int B, int gran, int smem_floor, void* stream,
+                int* info) {
+  const size_t smem = static_cast<size_t>(KSUB) * BANKS * sizeof(float);
+#define LAB_SKEW_CASE(MM)                                               \
+  case MM:                                                              \
+    return launch(EPI == MIN ? skew_min_kernel<MM> : skew_wide_kernel<MM>, \
+                  smem, B, a.nslots, smem_floor, stream, info, a, gran);
+  switch (a.M) {
+    LAB_SKEW_CASE(4)
+    LAB_SKEW_CASE(8)
+    LAB_SKEW_CASE(16)
+    LAB_SKEW_CASE(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LAB_SKEW_CASE
 }
 
 Args make_args(const void* lut, const void* norm_tab, const void* codes,
@@ -624,6 +993,16 @@ Args make_args(const void* lut, const void* norm_tab, const void* codes,
     return launch_runs<DEPTH>(LAB_MAKE, B, smem_floor, stream, info);       \
   }
 
+#define LAB_DIRECT(NAME, GRAN, EPI)                                         \
+  extern "C" int ivf_lab_##NAME(LAB_ARGS) {                                 \
+    return launch_direct<EPI>(LAB_MAKE, B, GRAN, smem_floor, stream, info); \
+  }
+
+#define LAB_SKEW(NAME, GRAN, EPI)                                           \
+  extern "C" int ivf_lab_##NAME(LAB_ARGS) {                                 \
+    return launch_skew<EPI>(LAB_MAKE, B, GRAN, smem_floor, stream, info);   \
+  }
+
 // gran 256: L4's steps x depth, L3's v1b, C copies, and the decomposition.
 LAB_PIPE(pipe256_c1_d8_s2, 256, 1, 8, 2, false, false, FULL, WIDE)
 LAB_PIPE(pipe256_c1_d16_s4, 256, 1, 16, 4, false, false, FULL, WIDE)
@@ -651,3 +1030,13 @@ LAB_PIPE(copy1024_wide, 1024, 1, 2, 1, false, false, COPY_ONLY, WIDE)
 LAB_PIPE(copy1024_min, 1024, 1, 2, 1, false, false, COPY_ONLY, MIN)
 LAB_RUNS(runs1024_d2, 2)
 LAB_RUNS(runs1024_d4, 4)
+// K1-K4 as first ported.
+LAB_DIRECT(direct256, 256, WIDE)
+LAB_DIRECT(direct1024, 1024, WIDE)
+LAB_DIRECT(direct256_min, 256, MIN)
+LAB_DIRECT(direct1024_min, 1024, MIN)
+// K1-K4 over a bank-skewed LUT.
+LAB_SKEW(skew256, 256, WIDE)
+LAB_SKEW(skew1024, 1024, WIDE)
+LAB_SKEW(skew256_min, 256, MIN)
+LAB_SKEW(skew1024_min, 1024, MIN)

@@ -111,22 +111,33 @@ def slot_schedule(lo: torch.Tensor, sizes: torch.Tensor,
 def adc_scan_slots_plain(lut: torch.Tensor, norm_tab: torch.Tensor,
                          codes: torch.Tensor, norm_codes: torch.Tensor,
                          start: torch.Tensor, length: torch.Tensor,
-                         bias: torch.Tensor, gran: int) -> torch.Tensor:
+                         bias: torch.Tensor, gran: int,
+                         rotate: bool = False) -> torch.Tensor:
     """Plain-torch version of the scan kernel (same function, same
     summation order: bias, norm, then m = 0..M-1).
 
     out[b, s*gran + l] = bias[b,s] + norm_tab[norm_codes[r]]
                          + sum_m lut[b, m, codes[r, m]],  r = start[b,s] + l,
-    for l < len[b,s], and +inf elsewhere. Returns [B, nslots*gran] f32."""
+    for l < len[b,s], and +inf elsewhere. Returns [B, nslots*gran] f32.
+
+    With ``rotate`` lane l adds its rows in the order (t + l) mod M for
+    t = 0..M-1 instead: the order of the scan lab's bank-skewed kernels
+    (``ops/cuda/scan_lab.py::lane_row``), the same sum up to f32 rounding."""
     B, S = start.shape
+    M = codes.shape[1]
     lane = torch.arange(gran, device=start.device)
     valid = lane < length.long()[:, :, None]                  # [B, S, gran]
     if codes.shape[0] == 0:
         return torch.full((B, S * gran), float("inf"), device=start.device)
     row = torch.where(valid, start[:, :, None] + lane, 0).reshape(B, S * gran)
+    shift = lane.repeat(S) if rotate else 0                   # [S*gran] or 0
+    flat_lut, flat_codes, row_m = (lut.reshape(B, M * KSUB),
+                                   codes.reshape(-1), row * M)
     acc = bias.repeat_interleave(gran, dim=1) + norm_tab[norm_codes[row].long()]
-    for m in range(codes.shape[1]):
-        acc = acc + torch.gather(lut[:, m, :], 1, codes[row, m].long())
+    for t in range(M):
+        m = (shift + t) % M
+        acc = acc + torch.gather(flat_lut, 1,
+                                 m * KSUB + flat_codes[row_m + m].long())
     return torch.where(valid.reshape(B, S * gran), acc, float("inf"))
 
 
@@ -221,13 +232,15 @@ adc_scan_slots.launches = 0
 def adc_scan_slots_min_plain(lut: torch.Tensor, norm_tab: torch.Tensor,
                              codes: torch.Tensor, norm_codes: torch.Tensor,
                              start: torch.Tensor, length: torch.Tensor,
-                             bias: torch.Tensor, gran: int) -> torch.Tensor:
+                             bias: torch.Tensor, gran: int,
+                             rotate: bool = False) -> torch.Tensor:
     """Plain-torch version of the min-scan kernel: the wide scan's per-slot
     minimum, mins[b, s] = min_l out[b, s*gran + l] (+inf for an empty
-    slot). Returns [B, nslots] f32."""
+    slot), ``rotate`` as in :func:`adc_scan_slots_plain`. Returns
+    [B, nslots] f32."""
     B, S = start.shape
     out = adc_scan_slots_plain(lut, norm_tab, codes, norm_codes, start,
-                               length, bias, gran)
+                               length, bias, gran, rotate)
     return out.view(B, S, gran).amin(dim=-1)
 
 

@@ -1,9 +1,20 @@
 """The scan lab: timing variants of the ADC scan (``csrc/scan_lab.cu``), the
 Hopper counterparts of the TPU lab rigs L1-L4 of ``tools/kernel_lab.py``.
 
-Four wrappers, each with its plain PyTorch version; :data:`LAUNCHES` counts
+Six wrappers, each with its plain PyTorch version; :data:`LAUNCHES` counts
 the launches of each variant:
 
+- :func:`scan_direct` (K1-K4, ``ivfhnsw_tpu/ops/pallas/adc_scan.py:216``,
+  ``:368``, ``:545``, ``:685``): the production kernels as first ported
+  (row-major LUT, direct code loads, every lane of a warp in the same row,
+  plain stores), kept so that every run times the first design beside the
+  current one on one card;
+- :func:`scan_skew` (the same four kernels): a bank-skewed LUT, in which
+  the 32 lanes of a warp read 32 different banks at every lookup whatever
+  the codes (:func:`skew_word`, :func:`lane_row`). It removes the bank
+  conflicts of the random lookups and pays for it in operations and
+  registers; it is kept in the lab because it measured slower than the
+  production kernels (``PERF.md``);
 - :func:`scan_runs` (L1, ``kernel_lab.py:87 _adc_kernel_v2``, one DMA per
   4-tile run): one TMA bulk copy per 1024-code slot into an mbarrier ring;
 - :func:`scan_pipelined` (L2 ``:525 _adc_kernel_quad`` / ``:449
@@ -21,7 +32,11 @@ They take the production scan's inputs (``ops/cuda/adc_scan.py``: LUTs,
 norm table, the flat store, the slot schedule) and a :class:`Variant` of
 :data:`VARIANTS`, which names the compiled instantiation. The full-function
 variants compute :func:`adc_scan_slots_plain`'s function (or its per-slot
-minimum) and equal ``adc_scan_slots`` / ``adc_scan_slots_min`` bit for bit.
+minimum) and equal ``adc_scan_slots`` / ``adc_scan_slots_min`` bit for bit,
+except the skew variants: they add a lane's rows in the rotated order of
+:func:`lane_row` (``adc_scan_slots_plain(..., rotate=True)``, which they
+equal bit for bit) and agree with production within f32 rounding (rtol
+1e-4, atol 1e-3).
 
 What bounds them on an H100: per valid lane M+1 code bytes and M+1 random
 shared-memory lookups, plus 4 B per lane of the wide output. The variants
@@ -47,15 +62,16 @@ from ivfhnsw_tpu_torch.ops.cuda.adc_scan import (CHUNK, KSUB, RCHUNK, _check,
                                                  adc_scan_slots_plain)
 
 LAB = "tools/kernel_lab.py"
+PALLAS = "ivfhnsw_tpu/ops/pallas/adc_scan.py"
 
 
 @dataclass(frozen=True)
 class Variant:
     """One compiled instantiation of ``csrc/scan_lab.cu``: entry point
-    ``ivf_lab_<name>``, the kernel family (``kind``: "runs", "pipelined",
-    "compute_only", "copy_only"), its slot width, LUT copies, ring depth,
-    slots per step, wait placement, branchless flag and epilogue ("wide"
-    or "min"), and the TPU rig it answers (``file:line``)."""
+    ``ivf_lab_<name>``, the kernel family (``kind``: "direct", "skew",
+    "runs", "pipelined", "compute_only", "copy_only"), its slot width, LUT
+    copies, ring depth, slots per step, wait placement, branchless flag and
+    epilogue ("wide" or "min"), and the TPU rig it answers (``file:line``)."""
 
     name: str
     kind: str
@@ -71,7 +87,7 @@ class Variant:
     @property
     def full(self) -> bool:
         """Computes the production scan's function (or its slot minima)."""
-        return self.kind in ("runs", "pipelined")
+        return self.kind in ("direct", "skew", "runs", "pipelined")
 
 
 def _pipe(name, gran, replaces, **kw):
@@ -82,7 +98,8 @@ def _pipe(name, gran, replaces, **kw):
 # the production kernel's 8 blocks per SM at M=16), L3's v1b,
 # 8 LUT copies, and the compute-only / copy-only decomposition of the
 # reference; at 1024, L2's LUT copies, branchless and depth (d2/s1 the
-# reference), its decomposition, and L1's bulk-copy runs.
+# reference), its decomposition, and L1's bulk-copy runs; then K1-K4 as first
+# ported (direct) and over a bank-skewed LUT (skew).
 VARIANTS = {v.name: v for v in (
     _pipe("pipe256_c1_d8_s2", CHUNK, f"{LAB}:694", depth=8,
           slots_per_step=2),
@@ -122,10 +139,56 @@ VARIANTS = {v.name: v for v in (
             epilogue="min"),
     Variant("runs1024_d2", "runs", RCHUNK, f"{LAB}:87"),
     Variant("runs1024_d4", "runs", RCHUNK, f"{LAB}:87", depth=4),
+    Variant("direct256", "direct", CHUNK, f"{PALLAS}:216"),
+    Variant("direct1024", "direct", RCHUNK, f"{PALLAS}:368"),
+    Variant("direct256_min", "direct", CHUNK, f"{PALLAS}:545",
+            epilogue="min"),
+    Variant("direct1024_min", "direct", RCHUNK, f"{PALLAS}:685",
+            epilogue="min"),
+    Variant("skew256", "skew", CHUNK, f"{PALLAS}:216"),
+    Variant("skew1024", "skew", RCHUNK, f"{PALLAS}:368"),
+    Variant("skew256_min", "skew", CHUNK, f"{PALLAS}:545", epilogue="min"),
+    Variant("skew1024_min", "skew", RCHUNK, f"{PALLAS}:685", epilogue="min"),
 )}
 
 # Launches per entry point, counted where each wrapper launches.
 LAUNCHES = {name: 0 for name in VARIANTS}
+
+
+# ---- the bank-skewed LUT: the skew kernels' addressing ----------------------
+
+BANKS = 32     # 4-byte shared-memory banks of an SM, and lanes of a warp
+
+
+def skewed(M: int) -> bool:
+    """Whether the skew kernels exist at ``M`` subquantizers: M divides the
+    32 banks and a code row is whole 4-byte words."""
+    return M in (4, 8, 16, 32)
+
+
+def skew_word(k: int, m: int, c: int, M: int) -> int:
+    """The skew kernels' shared-memory LUT layout, as their specification:
+    the 4-byte word that holds entry ``k`` of LUT row ``m`` in copy ``c``
+    of the C = 32 // M interleaved copies. Row m of copy c lives in bank
+    m * C + c alone, and the table takes 256 * 32 words at every M."""
+    C = BANKS // max(M, 1)
+    if not (skewed(M) and 0 <= k < KSUB and 0 <= m < M and 0 <= c < C):
+        raise ValueError(f"skew_word: no word for k={k} m={m} c={c} M={M}")
+    return k * BANKS + m * C + c
+
+
+def lane_copy(l: int, M: int) -> int:
+    """The LUT copy that lane ``l`` of a slot reads: (l // M) mod (32 // M)."""
+    return (l // M) % (BANKS // M)
+
+
+def lane_row(l: int, t: int, M: int) -> int:
+    """The LUT row (and code byte) that lane ``l`` of a slot adds at step
+    ``t`` = 0..M-1, after bias + norm: (t + l) mod M. The 32 lanes of a
+    warp hold 32 consecutive ``l``, hence every pair (l mod M,
+    :func:`lane_copy`) once, so at each step they read 32 different
+    (row, copy) pairs: 32 different banks, whatever the codes."""
+    return (t + l) % M
 
 
 # ---- plain versions --------------------------------------------------------
@@ -149,12 +212,14 @@ def _epilogue(out: torch.Tensor, v: Variant, S: int) -> torch.Tensor:
 
 def scan_full_plain(lut, norm_tab, codes, norm_codes, start, length, bias,
                     v: Variant) -> torch.Tensor:
-    """Plain version of :func:`scan_runs` and :func:`scan_pipelined`: the
-    production scan's function at ``v.gran``, wide or per-slot minimum."""
+    """Plain version of :func:`scan_direct`, :func:`scan_skew`,
+    :func:`scan_runs` and :func:`scan_pipelined`: the production scan's
+    function at ``v.gran``, wide or per-slot minimum; for a skew variant
+    summed in the rotated order of :func:`lane_row`."""
     plain = adc_scan_slots_min_plain if v.epilogue == "min" else (
         adc_scan_slots_plain)
     return plain(lut, norm_tab, codes, norm_codes, start, length, bias,
-                 v.gran)
+                 v.gran, rotate=v.kind == "skew")
 
 
 def scan_compute_only_plain(lut, norm_tab, codes, norm_codes, start, length,
@@ -244,6 +309,9 @@ def _lab_scan(wrapper, kinds: tuple, plain, v: Variant, args: tuple,
         _check(name, t, dtype, shape, dev, fn)
     if max(B, S, M) >= 2 ** 31 or M == 0:
         raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M}")
+    if v.kind == "skew" and not skewed(M):
+        raise ValueError(f"{fn}: the skew kernels need M in 4, 8, 16, 32, "
+                         f"got {M}")
     if v.kind == "compute_only" and not 0 <= tile_row <= N - v.gran:
         raise ValueError(f"{fn}: tile rows [{tile_row}, {tile_row + v.gran})"
                          f" outside the store's {N} rows")
@@ -269,10 +337,32 @@ def _lab_scan(wrapper, kinds: tuple, plain, v: Variant, args: tuple,
     return out
 
 
+def scan_direct(lut, norm_tab, codes, norm_codes, start, length, bias,
+                v: Variant, smem_floor: int = 0) -> torch.Tensor:
+    """K1-K4 as first ported (``v.kind == "direct"``): [B,
+    S*gran] f32, or with ``v.epilogue == "min"`` [B, S] slot minima, equal
+    to :func:`scan_full_plain`. Arguments as :func:`scan_runs`."""
+    return _lab_scan(scan_direct, ("direct",), scan_full_plain, v,
+                     (lut, norm_tab, codes, norm_codes, start, length, bias),
+                     smem_floor=smem_floor)
+
+
+def scan_skew(lut, norm_tab, codes, norm_codes, start, length, bias,
+              v: Variant, smem_floor: int = 0) -> torch.Tensor:
+    """K1-K4 over a bank-skewed LUT (``v.kind == "skew"``; M in 4, 8, 16,
+    32): [B, S*gran] f32, or with ``v.epilogue == "min"`` [B, S] slot
+    minima, equal to :func:`scan_full_plain` (the rotated order).
+    Arguments as :func:`scan_runs`."""
+    return _lab_scan(scan_skew, ("skew",), scan_full_plain, v,
+                     (lut, norm_tab, codes, norm_codes, start, length, bias),
+                     smem_floor=smem_floor)
+
+
 def scan_runs(lut, norm_tab, codes, norm_codes, start, length, bias,
               v: Variant, smem_floor: int = 0) -> torch.Tensor:
     """L1: the scan at 1024-code slots with one TMA bulk copy per slot
-    (``v.kind == "runs"``); [B, S*1024] f32, equal to ``adc_scan_slots``.
+    (``v.kind == "runs"``); [B, S*1024] f32, equal to
+    :func:`scan_full_plain`.
     Arguments as ``adc_scan_slots`` (codes and norm_codes 16-byte aligned
     on the card); ``smem_floor`` raises the launch's shared memory (to
     compare at a lower occupancy)."""
@@ -284,9 +374,9 @@ def scan_runs(lut, norm_tab, codes, norm_codes, start, length, bias,
 def scan_pipelined(lut, norm_tab, codes, norm_codes, start, length, bias,
                    v: Variant, smem_floor: int = 0) -> torch.Tensor:
     """L2 / L3's v1b / L4: the scan through a cp.async ring
-    (``v.kind == "pipelined"``); [B, S*gran] f32 equal to
-    ``adc_scan_slots``, or with ``v.epilogue == "min"`` [B, S] equal to
-    ``adc_scan_slots_min``. Arguments as :func:`scan_runs`."""
+    (``v.kind == "pipelined"``); [B, S*gran] f32, or with
+    ``v.epilogue == "min"`` [B, S] slot minima, equal to
+    :func:`scan_full_plain`. Arguments as :func:`scan_runs`."""
     return _lab_scan(scan_pipelined, ("pipelined",), scan_full_plain, v,
                      (lut, norm_tab, codes, norm_codes, start, length, bias),
                      smem_floor=smem_floor)
@@ -314,6 +404,8 @@ def scan_copy_only(lut, norm_tab, codes, norm_codes, start, length, bias,
 
 # Wrapper and plain version of each kind.
 FUNCTIONS = {
+    "direct": (scan_direct, scan_full_plain),
+    "skew": (scan_skew, scan_full_plain),
     "runs": (scan_runs, scan_full_plain),
     "pipelined": (scan_pipelined, scan_full_plain),
     "compute_only": (scan_compute_only, scan_compute_only_plain),

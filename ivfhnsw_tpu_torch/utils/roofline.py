@@ -1,9 +1,18 @@
 """The least time an H100 could take for a scan: the larger of its bytes
 (each input read once, each output written once) over the memory rate and
 its f32 operations over the f32 peak, the H100 SXM data-sheet figures at
-700 W."""
+700 W.
+
+Beside the bound, a scan record carries ``lookup_ms``: the least time the
+card's shared memory could take for the scan's LUT lookups if no two lanes
+of a warp ever met in a bank (each SM serves 32 four-byte words per clock).
+It is not part of ``bound_ms``; it says how far a lookup-bound kernel is
+from the rate of its own mechanism."""
 
 from __future__ import annotations
+
+import functools
+import subprocess
 
 import torch
 
@@ -19,6 +28,30 @@ def bound(nbytes: float, ops: float) -> dict:
             else {"bound_ms": by_ops, "bound_by": "operations"})
 
 
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_mhz(index: int = 0) -> float:
+    """The card's maximum SM clock in MHz, as ``nvidia-smi
+    --query-gpu=clocks.max.sm`` gives it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", str(index)],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def lookup_ms(lookups: float, device: torch.device) -> float | None:
+    """Milliseconds that ``lookups`` 4-byte shared-memory reads take at one
+    word per bank per clock on every SM of CUDA device ``device`` (SM count
+    x 32 x the maximum SM clock); None for a device that is not a card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None else (
+        device.index)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return lookups / (sms * 32 * max_sm_clock_mhz(index) * 1e3)
+
+
 def rows_touched(start: torch.Tensor, length: torch.Tensor, n: int) -> int:
     """Distinct store rows in the union of the slots [start, start + len)."""
     m = length > 0
@@ -30,13 +63,20 @@ def rows_touched(start: torch.Tensor, length: torch.Tensor, n: int) -> int:
 
 
 def scan_bound(args, out_numel: int, row_bytes: int, ops_per_lane: int,
-               extra_bytes: int = 0) -> dict:
+               extra_bytes: int = 0, lookups_per_lane: int | None = None
+               ) -> dict:
     """bound() of an ADC scan over ``args`` (lut, norm_tab, codes,
     norm_codes, start, length, bias, ...): LUTs, norm table and schedule
     read once, ``row_bytes`` per touched store row, the f32 output written
-    once; ``ops_per_lane`` f32 operations per valid lane."""
+    once; ``ops_per_lane`` f32 operations per valid lane. Also
+    ``lookup_ms`` (:func:`lookup_ms`) of ``lookups_per_lane`` table lookups
+    per valid lane (default M + 1: the LUT rows and the norm table)."""
     lut, ntab, codes, _, start, length = args[:6]
     nbytes = (lut.numel() * 4 + ntab.numel() * 4 + start.numel() * 16
               + rows_touched(start, length, codes.shape[0]) * row_bytes
               + out_numel * 4 + extra_bytes)
-    return bound(nbytes, int(length.sum()) * ops_per_lane)
+    valid = int(length.sum())
+    if lookups_per_lane is None:
+        lookups_per_lane = codes.shape[1] + 1
+    return {**bound(nbytes, valid * ops_per_lane),
+            "lookup_ms": lookup_ms(valid * lookups_per_lane, lut.device)}

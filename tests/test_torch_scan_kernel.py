@@ -64,9 +64,11 @@ def test_plain_scan_values_by_hand():
                                   bias, gran).numpy()
     b, s, l = 2, 2, 77
     r = int(start[b, s]) + l
-    expect = (float(bias[b, s]) + float(ntab[int(ncodes[r])])
-              + sum(float(lut[b, m, int(codes[r, m])]) for m in range(8)))
-    assert out[b, s * gran + l] == pytest.approx(expect, rel=1e-6)
+    # f32, in the kernels' order: bias, norm, then m = 0..M-1
+    expect = np.float32(bias[b, s]) + np.float32(ntab[int(ncodes[r])])
+    for m in range(8):
+        expect = np.float32(expect + np.float32(lut[b, m, int(codes[r, m])]))
+    assert out[b, s * gran + l] == expect
 
 
 def test_plain_scan_empty_store_is_all_inf():
@@ -109,6 +111,83 @@ def test_kernel_matches_plain_on_card(M, gran):
     assert torch.equal(torch.isinf(out), torch.isinf(ref))
     fin = torch.isfinite(ref)
     torch.testing.assert_close(out[fin], ref[fin], rtol=RTOL, atol=ATOL)
+
+
+def _card_args(M, gran, B, store, device):
+    """B queries x 11 slots over a 5003-row store: empty (alone, in a run
+    in the middle and in a run at the end), one code, partial and full
+    slots at odd start rows, a slot ending at the store's last row; query
+    0's schedule is all empty when B > 1. ``store`` picks the codes of
+    tools/bank_probe.py::bank_stores."""
+    from ivfhnsw_tpu_torch.tools.bank_probe import bank_stores
+    rng = np.random.RandomState(7)
+    N = 5003
+    lens = [0, 1, gran // 2 + 3, 0, 0, 0, gran, 77, gran - 5, 0, 0]
+    starts = [0, 17, 101, 0, 0, 0, 5, N - 77, 1001, 0, 0]
+    lut = torch.from_numpy(rng.randn(B, M, 256).astype(np.float32) * 3)
+    ntab = torch.from_numpy(rng.rand(256).astype(np.float32) * 10)
+    codes = torch.from_numpy(rng.randint(0, 256, (N, M)).astype(np.uint8))
+    ncodes = torch.from_numpy(rng.randint(0, 256, N).astype(np.uint8))
+    codes, ncodes = bank_stores(codes, ncodes)[store]
+    start = torch.tensor([starts] * B, dtype=torch.int64)
+    start[B // 2:, 2] += 40
+    length = torch.tensor([lens] * B, dtype=torch.int32)
+    if B > 1:
+        length[0] = 0
+    bias = torch.from_numpy(rng.randn(B, len(lens)).astype(np.float32))
+    return [x.to(device) for x in (lut, ntab, codes, ncodes, start, length,
+                                   bias)] + [gran]
+
+
+def test_card_args_on_cpu_cover_empty_runs_and_the_stores_end():
+    """The card tests' inputs, through the plain versions on the CPU."""
+    args = _card_args(12, 256, 7, "way8", "cpu")
+    out = tk.adc_scan_slots(*args).view(7, 11, 256)
+    assert torch.isinf(out[0]).all()                        # all-empty query
+    assert torch.isinf(out[1:, [0, 3, 4, 5, 9, 10]]).all()   # empty runs
+    assert torch.isfinite(out[1:, 6]).all()                  # full slot
+    assert torch.isfinite(out[1:, 7, :77]).all()             # the store's end
+    assert torch.equal(tk.adc_scan_slots_min(*args), out.amin(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7])
+@pytest.mark.parametrize("store", ["real", "free", "way8"])
+@pytest.mark.parametrize("gran", [256, 1024])
+@pytest.mark.parametrize("M", [4, 8, 12, 16, 32])
+def test_kernels_bit_equal_to_plain_on_card(M, gran, store, B):
+    """Both kernels torch.equal to their plain versions, the min kernel to
+    the wide kernel's slot minima: M = 16 on the 16-byte loads, any other M
+    on the byte loop; empty, partial and full slots, runs of empty slots
+    (one fill), odd start rows, the store's last row; stores whose lookups
+    never, randomly or always meet in a bank; B = 1 and B = 7."""
+    _need_card()
+    args = _card_args(M, gran, B, store, "cuda")
+    wide = tk.adc_scan_slots(*args)
+    mins = tk.adc_scan_slots_min(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(wide, tk.adc_scan_slots_plain(*args))
+    assert torch.equal(mins, tk.adc_scan_slots_min_plain(*args))
+    assert torch.equal(mins, wide.view(B, 11, gran).amin(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gran", [256, 1024])
+def test_kernels_on_a_store_off_a_16_byte_boundary_on_card(gran):
+    """M = 16 codes that start one byte into their buffer take the byte
+    loop in place of the 16-byte loads; the output's slots then start off
+    a 16-byte boundary for no width, so this also holds the fill's
+    alignment test."""
+    _need_card()
+    args = _card_args(16, gran, 3, "real", "cuda")
+    buf = torch.zeros(args[2].numel() + 1, dtype=torch.uint8, device="cuda")
+    buf[1:] = args[2].reshape(-1)
+    args[2] = buf[1:].view(args[2].shape)
+    assert args[2].data_ptr() % 16 == 1 and args[2].is_contiguous()
+    assert torch.equal(tk.adc_scan_slots(*args),
+                       tk.adc_scan_slots_plain(*args))
+    assert torch.equal(tk.adc_scan_slots_min(*args),
+                       tk.adc_scan_slots_min_plain(*args))
 
 
 @pytest.mark.cuda

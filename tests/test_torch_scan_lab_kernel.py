@@ -7,10 +7,13 @@ This file imports no jax, so it also runs on a machine with a GPU and no
 jax; tests/conftest.py imports jax, so run it there with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_scan_lab_kernel.py
 Tests marked ``cuda`` skip where torch.cuda.is_available() is false.
-Tolerance: none. The full-function variants sum in the production kernel's
-order and are held to torch.equal with their plain versions and with
-adc_scan_slots / adc_scan_slots_min; compute-only and copy-only sum in
-their plain versions' order and are held to torch.equal too.
+Tolerance against a plain version: none. Every variant sums in its plain
+version's order and is held to torch.equal with it. The full-function
+variants sum in the production kernels' order (bias, norm, m = 0..M-1) and
+are held to torch.equal with adc_scan_slots / adc_scan_slots_min too,
+except the skew variants: they add a lane's rows in a rotated order (f32
+sums of the same terms in another order) and are held to production at the
+cross-engine tolerance, rtol=1e-4 and atol=1e-3 with the same +inf pattern.
 """
 
 import os
@@ -54,6 +57,21 @@ def _args(device="cpu", M=8, gran=256):
                                    bias)]
 
 
+RTOL, ATOL = 1e-4, 1e-3
+
+
+def _assert_matches_production(out, v, args):
+    """A full-function variant against the production scan on ``args``."""
+    prod = (tk.adc_scan_slots_min if v.epilogue == "min"
+            else tk.adc_scan_slots)(*args, v.gran)
+    if v.kind != "skew":
+        assert torch.equal(out, prod)
+        return
+    assert torch.equal(torch.isinf(out), torch.isinf(prod))
+    fin = torch.isfinite(prod)
+    torch.testing.assert_close(out[fin], prod[fin], rtol=RTOL, atol=ATOL)
+
+
 def _call(v, args, **kw):
     wrapper, _ = sl.FUNCTIONS[v.kind]
     return wrapper(*args, v, **kw)
@@ -71,9 +89,7 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch(name):
     assert out.shape == ((3, S) if v.epilogue == "min" else (3, S * v.gran))
     assert torch.equal(out, plain(*args, v))
     if v.full:
-        prod = (tk.adc_scan_slots_min if v.epilogue == "min"
-                else tk.adc_scan_slots)(*args, v.gran)
-        assert torch.equal(out, prod)
+        _assert_matches_production(out, v, args)
     lanes = out if v.epilogue == "min" else out.view(3, S, v.gran)[..., 0]
     assert torch.isinf(lanes[:, 0]).all() and torch.isfinite(lanes[:, 1:]).all()
 
@@ -107,8 +123,9 @@ def test_copy_only_plain_by_hand():
 
 
 def test_variant_table_matches_the_cuda_source():
-    """Every VARIANTS entry is one LAB_PIPE / LAB_RUNS instantiation of
-    csrc/scan_lab.cu with the same parameters, and nothing else is."""
+    """Every VARIANTS entry is one LAB_PIPE / LAB_RUNS / LAB_DIRECT /
+    LAB_SKEW instantiation of csrc/scan_lab.cu with the same parameters,
+    and nothing else is."""
     with open(SOURCE) as f:
         src = f.read()
     found = {}
@@ -123,15 +140,20 @@ def test_variant_table_matches_the_cuda_source():
     for m in re.finditer(r"^LAB_RUNS\((\w+), (\d+)\)", src, re.M):
         found[m.group(1)] = ("runs", 1024, 1, int(m.group(2)), 1, False,
                              False, "wide")
+    for m in re.finditer(r"^LAB_(DIRECT|SKEW)\((\w+), (\d+), (\w+)\)", src,
+                         re.M):
+        found[m.group(2)] = (m.group(1).lower(), int(m.group(3)), 1, 2, 1,
+                             False, False,
+                             {"WIDE": "wide", "MIN": "min"}[m.group(4)])
     table = {n: (v.kind, v.gran, v.copies, v.depth, v.slots_per_step,
                  v.batched_wait, v.branchless, v.epilogue)
              for n, v in sl.VARIANTS.items()}
     assert found == table
-    assert len(table) <= 24
+    assert len(table) <= 32
 
 
 @pytest.mark.parametrize("bad", ["kind", "foreign", "dtype", "shape",
-                                 "device", "tile_row"])
+                                 "device", "tile_row", "skew_m"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     args = _args()
     v = sl.VARIANTS["pipe256_c1_d8_s2"]
@@ -147,6 +169,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         args[0] = args[0][:, :, :128].contiguous()    # lut
     elif bad == "device":
         args[6] = args[6].to("meta")                  # bias
+    elif bad == "skew_m":                             # 12 does not divide 32
+        args = _args(M=12)
+        fn, v = sl.scan_skew, sl.VARIANTS["skew256"]
     else:
         fn, v = sl.scan_compute_only, sl.VARIANTS["comp256_wide"]
         kw = {"tile_row": 5001 - 100}
@@ -169,7 +194,8 @@ def test_kernel_matches_plain_on_card(name, M):
     """Every instantiation at M=16 (16-byte rows) and M=8 (8-byte rows, a
     store whose byte counts end off a 16-byte boundary): torch.equal to its
     plain version and, for a full-function variant, to the production
-    kernel; compute-only at an odd tile row."""
+    kernel (a skew variant: within tolerance); compute-only at an odd tile
+    row."""
     _need_card()
     v = sl.VARIANTS[name]
     args = _args("cuda", M=M, gran=v.gran)
@@ -181,9 +207,22 @@ def test_kernel_matches_plain_on_card(name, M):
     assert sl.LAUNCHES == {**before, name: before[name] + 1}
     assert torch.equal(out, plain(*args, v, *kw.values()))
     if v.full:
-        prod = (tk.adc_scan_slots_min if v.epilogue == "min"
-                else tk.adc_scan_slots)(*args, v.gran)
-        assert torch.equal(out, prod)
+        _assert_matches_production(out, v, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 32])
+@pytest.mark.parametrize("name", [n for n in NAMES if n.startswith("skew")])
+def test_skew_kernels_at_the_other_widths_of_the_layout_on_card(name, M):
+    """The skew kernels at M = 4 (8 LUT copies) and M = 32 (one): torch.equal
+    to the rotated plain version, within tolerance of production."""
+    _need_card()
+    v = sl.VARIANTS[name]
+    args = _args("cuda", M=M, gran=v.gran)
+    out = sl.scan_skew(*args, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, sl.scan_full_plain(*args, v))
+    _assert_matches_production(out, v, args)
 
 
 @pytest.mark.cuda
