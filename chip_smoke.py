@@ -4,20 +4,24 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compile the hand-written kernels (csrc/adc_scan.cu,
-   csrc/grouping_scan.cu and csrc/scan_lab.cu) with nvcc from this
-   checkout, one nvcc process per source, started together;
+   csrc/grouping_scan.cu, csrc/grouping_lab.cu and csrc/scan_lab.cu) with
+   nvcc from this checkout, one nvcc process per source, started together;
 3. each kernel against its plain PyTorch version on the card, at the
    primary shapes (B=1024, M=16, 2M codes) with empty, partial and full
    slots (and, for the grouping kernel, pruned subgroups), at both slot
-   widths (256 and 1024 codes); the min-scan kernel bit for bit
-   (torch.equal) against its plain version and the wide kernel's per-slot
-   minima;
-4. the IVFADC main path through the port's driver functions at the primary
-   point: synthetic 2M x 128d corpus, nc=4096, code_size=16; train
-   centroids and PQ, assign, add, finalize; search 8192 queries with engine
-   "fused" at both slot widths (nprobe=32, max_codes=10000, k=10); the
-   kernel's launch count must grow; 512 queries are checked against engine
-   "torch"; recall against exact ground truth computed on the card;
+   widths (256 and 1024 codes); the min-scan and the grouping kernel bit
+   for bit (torch.equal) against their plain versions, the min-scan kernel
+   also against the wide kernel's per-slot minima;
+4. the IVFADC main path through the file-backed driver command
+   (drivers/ivfadc_eval.py::main over -path_* flags, run 1 of phase 12) at
+   the primary point: the synthetic 2M x 128d corpus of seed 0 and its
+   exact ground truth (computed on the card) written as base.fvecs,
+   learn.fvecs, query.fvecs, gt.ivecs in a temporary directory; nc=4096,
+   code_size=16; the driver trains centroids and PQ, assigns, adds,
+   finalizes, writes every artifact and searches 8192 queries (nprobe=32,
+   max_codes=10000, k=10); its index is handed on, and searched with
+   engine "fused" at both slot widths; the kernel's launch count must grow
+   in each; 512 queries are checked against engine "torch"; recall;
 5. on the main path's own schedule for one search batch (all 8192
    queries at the default batch): the kernel compared
    with its plain version, both timed, and each layer of the fused search
@@ -45,16 +49,24 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 7. determinism: k-means at the primary point (200k learn rows, nc=4096,
    15 iterations) twice from one seed gives the same centroids, bit for bit;
 8. the Grouping+Pruning+OPQ main path at the flagship point (the JAX
-   bench's own sizes, bench.py:10-11, :686-693): phase 4's corpus, ground
-   truth, coarse centroids and assignments, nsubc=64, OPQ on; neighbours,
-   OPQ + PQ, the alpha pass, the add loop, finalize (each stage timed);
-   search 8192 queries with pruning (nprobe=32, max_codes=10000, k=10) with
-   engine "fused" at both slot widths, the grouping kernel's launch count
-   reset before and read after and required to grow at both widths; 512
-   queries checked against engine "torch" with pruning on and off; recall;
+   bench's own sizes, bench.py:10-11, :686-693) through
+   drivers/grouping_eval.py::main over the same files (run 1 of phase 12):
+   it loads phase 4's coarse centroids and assignments from their files,
+   nsubc=64, OPQ on; neighbours, OPQ + PQ, the alpha pass, the add loop,
+   finalize, the write (each stage timed); its index is handed on and
+   searched with pruning (nprobe=32, max_codes=10000, k=10) with engine
+   "fused" at both slot widths, the grouping kernel's launch count reset
+   before and read after and required to grow at both widths; 512 queries
+   checked against engine "torch" with pruning on and off; recall;
 9. on the grouping path's own schedule for one 8192-query batch: the
-   grouping kernel compared with its plain version, both timed, and each
-   layer of the fused grouping search timed;
+   grouping kernel torch.equal to its plain version, both timed, its bound
+   (a pruned lane counts the one subc byte any implementation must read),
+   and each layer of the fused grouping search timed; then
+   tools/grouping_probe.py: the engine's kernel and every design step of
+   ops/cuda/grouping_lab.py (from "direct", the kernel as first ported)
+   each torch.equal to the plain version, timed, and timed against
+   "direct" in turns (A B B A x 4), with the lab's launch counts reset
+   before and required to grow;
 10. the query surface: search_device on 8192 device-resident queries
    (CUDA tensors equal to search's output, both timed); scan_slot_demand
    of the IVFADC index and of the flagship, and the flagship searched
@@ -74,6 +86,17 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    compute-only / copy-only / LUT-copies decomposition. The skew variants
    add a lane's rows in a rotated order and are held to the production
    kernels within RTOL / ATOL instead.
+12. files: run 2 of both driver commands over phase 4's and 8's files must
+   load every artifact (asserted on the drivers' stage records) and return
+   labels equal to run 1's on all 8192 queries, distances within RTOL /
+   ATOL and equal recall, with the scan kernels' launch counts reset
+   before and required to grow; each read-back index rewrites its .index
+   byte-identically; drivers/disk_rerank.py over the grouping files against
+   base.fvecs (R@10 no lower than the ANN search's); drivers/vector_add.py
+   -synthetic 0 -segments 4 at the flagship sizes over the grouping
+   quantizer files (four index_NN.index files, ntotal 0.5M / 1M / 1.5M /
+   2M, the last segment's recall beside the one-shot build's); [files]
+   lines with every stage's seconds cold and warm and the files' sizes.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -114,6 +137,7 @@ SOURCE = "ivfhnsw_tpu_torch/csrc/adc_scan.cu"
 GROUPING_KERNELS = {256: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:113",
                     1024: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:248"}
 GROUPING_SOURCE = "ivfhnsw_tpu_torch/csrc/grouping_scan.cu"
+GROUPING_LAB_SOURCE = "ivfhnsw_tpu_torch/csrc/grouping_lab.cu"
 FLAGSHIP = dict(nsubc=64, do_opq=True, do_pruning=True)
 SEARCH_BATCH = 8192  # IVFADCIndex.search's default batch
 LAB_SOURCE = "ivfhnsw_tpu_torch/csrc/scan_lab.cu"
@@ -194,9 +218,14 @@ def phase_kernels_vs_plain(device, nb: int) -> None:
             _sync(device)
             if torch.isnan(out).any():
                 raise AssertionError(f"{tag} gran={gran}: NaN lanes")
-            err = compare(out, plain(*args), f"{tag} synthetic gran={gran}")
-            print(f"[{tag}] gran={gran} B={B} slots={nslots}: matches plain, "
-                  f"max_abs_err={err!r}", flush=True)
+            ref = plain(*args)
+            err = compare(out, ref, f"{tag} synthetic gran={gran}")
+            if tag == "gkernel" and not torch.equal(out, ref):
+                raise AssertionError(f"gkernel synthetic gran={gran}: not "
+                                     "torch.equal to its plain version")
+            print(f"[{tag}] gran={gran} B={B} slots={nslots}: matches plain"
+                  + (" (torch.equal)" if tag == "gkernel" else "")
+                  + f", max_abs_err={err!r}", flush=True)
             if tag == "kernel":
                 check_min_kernel(args, out, f"synthetic gran={gran}")
 
@@ -230,6 +259,180 @@ def timed(stages: dict, name: str, fn, device):
     return r
 
 
+class SmokeFiles:
+    """The corpus and artifact files of the file-backed phases in one
+    directory, and the drivers' command lines over them. The two indexes
+    share the corpus, the coarse centroids and the assignments; each has its
+    own quantizer and ``.index`` files."""
+
+    CORPUS = {"path_base": "base.fvecs", "path_learn": "learn.fvecs",
+              "path_q": "query.fvecs", "path_gt": "gt.ivecs"}
+    SHARED = {"path_centroids": "centroids.fvecs",
+              "path_precomputed_idxs": "precomputed_idxs.ivecs"}
+    OWN = {"ivfadc": {"path_pq": "ivfadc.pq", "path_norm_pq": "ivfadc.norm_pq",
+                      "path_index": "ivfadc.index"},
+           "grouping": {"path_pq": "grouping.pq",
+                        "path_norm_pq": "grouping.norm_pq",
+                        "path_opq_matrix": "grouping.opq",
+                        "path_index": "grouping.index"}}
+
+    def __init__(self, root: str, p: dict):
+        self.root, self.p = root, p
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.root, name)
+
+    def sizes(self) -> list:
+        p = self.p
+        return ["-d", p["d"], "-nc", p["nc"], "-code_size", p["code_size"],
+                "-nb", p["nb"], "-nt", p["nt"], "-nq", p["nq"], "-ngt", 1,
+                "-k", p["k"], "-nprobe", p["nprobe"], "-max_codes",
+                p["max_codes"]]
+
+    def flagship(self) -> list:
+        return ["-nsubc", FLAGSHIP["nsubc"],
+                "-do_opq", "on" if FLAGSHIP["do_opq"] else "off",
+                "-do_pruning", "on" if FLAGSHIP["do_pruning"] else "off"]
+
+    def flags(self, names: dict) -> list:
+        return [x for k, v in names.items() for x in (f"-{k}", self.path(v))]
+
+    def argv(self, which: str) -> list:
+        """The command line of ivfadc_eval ("ivfadc") or grouping_eval /
+        disk_rerank ("grouping") over the files."""
+        extra = self.flagship() if which == "grouping" else []
+        return [str(x) for x in self.sizes() + extra + self.flags(
+            {**self.CORPUS, **self.SHARED, **self.OWN[which]})]
+
+    def vector_add_argv(self, out_dir: str, segments: int) -> list:
+        """vector_add over the synthetic corpus, the coarse centroids and
+        the flagship's quantizer files; its indexes go to ``out_dir``."""
+        quant = {k: v for k, v in {**self.SHARED,
+                                   **self.OWN["grouping"]}.items()
+                 if k not in ("path_precomputed_idxs", "path_index")}
+        return [str(x) for x in
+                ["-synthetic", 0, "-segments", segments] + self.sizes()
+                + self.flagship() + self.flags(quant)
+                + ["-path_index", os.path.join(out_dir, "index")]]
+
+    def write_corpus(self, ds) -> int:
+        """The synthetic corpus and its ground truth as the reference's
+        files; returns the bytes of base.fvecs."""
+        from ivfhnsw_tpu_torch.utils import io
+        io.write_xvec(self.path("base.fvecs"), ds.base)
+        io.write_xvec(self.path("learn.fvecs"), ds.learn)
+        io.write_xvec(self.path("query.fvecs"), ds.queries)
+        io.write_xvec(self.path("gt.ivecs"), ds.gt.astype(np.int32))
+        return os.path.getsize(self.path("base.fvecs"))
+
+
+COLD = {"ivfadc": {"centroids": "trained", "pq": "trained",
+                   "assign": "computed", "index": "built"},
+        # the flagship takes phase 4's coarse centroids and assignments
+        "grouping": {"centroids": "loaded", "pq": "trained",
+                     "assign": "loaded", "index": "built"}}
+WARM = {"centroids": "loaded", "pq": "loaded", "assign": "loaded",
+        "index": "read"}
+
+
+def run_driver(main, argv: list, how: dict, what: str) -> dict:
+    """One driver command with its wall seconds; its stage record must say
+    ``how`` each artifact came about (loaded or computed)."""
+    t = time.perf_counter()
+    res = main(argv)
+    res["wall_s"] = time.perf_counter() - t
+    if res["stages"]["how"] != how:
+        raise AssertionError(f"{what}: stages {res['stages']['how']}, "
+                             f"expected {how}")
+    return res
+
+
+def run_files(device, files: SmokeFiles, ds, first: dict) -> None:
+    """Phase 12 after run 1 of both drivers (``first``: their results by
+    index): run 2 from the files, the byte-identical rewrite, disk_rerank
+    and vector_add."""
+    import filecmp
+
+    from ivfhnsw_tpu_torch.drivers import (disk_rerank, grouping_eval,
+                                           ivfadc_eval, vector_add)
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+
+    mains = {"ivfadc": (ivfadc_eval.main, tk.adc_scan_slots),
+             "grouping": (grouping_eval.main, tg.grouping_scan_slots)}
+    for which, (main, wrapper) in mains.items():
+        r1 = first[which]
+        wrapper.launches = 0
+        r2 = run_driver(main, files.argv(which), WARM, f"{which} run 2")
+        if wrapper.launches <= 0:
+            raise AssertionError(f"{which} run 2: its scan kernel never "
+                                 "launched")
+        if not np.array_equal(r2["labels"], r1["labels"]):
+            raise AssertionError(f"{which}: run 2's labels differ from run "
+                                 f"1's on {ds.nq} queries")
+        np.testing.assert_allclose(r2["dists"], r1["dists"], rtol=RTOL,
+                                   atol=ATOL, err_msg=f"{which} run 2")
+        if r2["recalls"] != r1["recalls"]:
+            raise AssertionError(f"{which}: recall {r2['recalls']} after "
+                                 f"loading, {r1['recalls']} after building")
+        own = files.path(files.OWN[which]["path_index"])
+        again = files.path(f"{which}.again.index")
+        t = time.perf_counter()
+        r2["index"].write(again)
+        t_write = time.perf_counter() - t
+        if not filecmp.cmp(own, again, shallow=False):
+            raise AssertionError(f"{which}: the index read from {own} does "
+                                 "not rewrite it byte-identically")
+        os.remove(again)
+        cold, warm = r1["stages"]["seconds"], r2["stages"]["seconds"]
+        print(f"[files] {which}: run 1 (cold) {r1['wall_s']:.2f} s, stages_s "
+              + json.dumps({k: round(v, 3) for k, v in cold.items()})
+              + f"; run 2 (warm, every artifact loaded) {r2['wall_s']:.2f} s, "
+              "stages_s " + json.dumps({k: round(v, 3)
+                                        for k, v in warm.items()})
+              + f"; {os.path.basename(own)} {os.path.getsize(own)} B, written "
+              f"in {cold['write']:.3f} s, read in {warm['read']:.3f} s, "
+              f"rewritten byte-identically in {t_write:.3f} s; labels equal "
+              f"on all {ds.nq} queries, R@1 {r2['recalls'][1]:.4f} R@10 "
+              f"{r2['recalls'][10]:.4f} in both runs; kernel launches in "
+              f"run 2: {wrapper.launches}", flush=True)
+
+    # disk rerank over the grouping files, against the raw base file
+    ann = first["grouping"]["recalls"]
+    rr = run_driver(disk_rerank.main, files.argv("grouping"), WARM,
+                    "disk_rerank")
+    if rr["recalls"][10] < ann[10]:
+        raise AssertionError(f"disk_rerank R@10 {rr['recalls'][10]} below the "
+                             f"ANN search's {ann[10]}")
+    print(f"[files] disk_rerank over grouping.index and base.fvecs: R@1 "
+          f"{rr['recalls'][1]:.4f} R@10 {rr['recalls'][10]:.4f} (ANN search "
+          f"{ann[1]:.4f} / {ann[10]:.4f}), {rr['us_per_query']:.1f} us/query "
+          f"(ANN for 20 candidates + host rerank), command "
+          f"{rr['wall_s']:.2f} s", flush=True)
+
+    # incremental build in four segments, over the flagship's quantizers
+    va_dir = files.path("vector_add")
+    os.makedirs(va_dir)
+    t = time.perf_counter()
+    res = vector_add.main(files.vector_add_argv(va_dir, 4))
+    wall = time.perf_counter() - t
+    names = sorted(os.listdir(va_dir))
+    want = [f"index_{i:02d}.index" for i in range(4)]
+    quarter = files.p["nb"] // 4
+    if names != want or [r["ntotal"] for r in res] != [
+            quarter * (i + 1) for i in range(4)]:
+        raise AssertionError(f"vector_add: files {names}, ntotal "
+                             f"{[r['ntotal'] for r in res]}")
+    last = res[-1]["recalls"]
+    print(f"[files] vector_add -synthetic 0 -segments 4: ntotal "
+          f"{[r['ntotal'] for r in res]}, R@10 per segment "
+          f"{[round(r['recalls'][10], 4) for r in res]}, after the last "
+          f"segment R@1 {last[1]:.4f} R@10 {last[10]:.4f} (one-shot build "
+          f"{ann[1]:.4f} / {ann[10]:.4f}), index files "
+          f"{[os.path.getsize(os.path.join(va_dir, n)) for n in names]} B, "
+          f"command {wall:.2f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -254,10 +457,13 @@ def main() -> int:
     # 2. build, one nvcc per source, all started together
     from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     t0 = time.perf_counter()
-    sos = kbuild.build_all(["adc_scan", "grouping_scan", "scan_lab"])
+    sos = kbuild.build_all(["adc_scan", "grouping_scan", "grouping_lab",
+                            "scan_lab"])
     tk._entry("ivf_adc_scan_slots")
     tk._entry("ivf_adc_scan_slots_min")
     tg._kernel()
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_lab as gl
+    gl._entry()
     from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
     for name in sl.VARIANTS:
         sl._entry(name)
@@ -268,7 +474,9 @@ def main() -> int:
                 ln.strip() for ln in f if "ptxas" in ln or "error" in ln),
                 flush=True)
 
-    kernels = run(device, PRIMARY)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        kernels = run(device, PRIMARY, SmokeFiles(tmp, PRIMARY))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -277,12 +485,12 @@ def main() -> int:
     return 0
 
 
-def run(device, p: dict) -> list:
-    """Phases 3-11 on ``device`` at the sizes ``p``; returns the kernel
-    result records."""
+def run(device, p: dict, files: SmokeFiles) -> list:
+    """Phases 3-12 on ``device`` at the sizes ``p`` over the files
+    ``files``; returns the kernel result records."""
     import torch
-    from ivfhnsw_tpu_torch import IVFADCIndex
     from ivfhnsw_tpu_torch.drivers import common as C
+    from ivfhnsw_tpu_torch.drivers import ivfadc_eval
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
     from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.ops.topk import binned_topk_smallest
@@ -306,14 +514,18 @@ def run(device, p: dict) -> list:
 
     tk.adc_scan_slots.launches = 0
     ds = stage("dataset_host", lambda: C.SyntheticDataset(cfg, 0, device))
-    index = IVFADCIndex(cfg.index, device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    stage("train_centroids", lambda: C.setup_quantizer(index, cfg, ds, gen))
-    stage("train_pq", lambda: C.setup_pq(index, cfg, ds, gen))
-    idxs = stage("assign", lambda: C.load_or_assign(index, cfg, ds))
-    stage("add_finalize", lambda: C.build_or_read_index(index, cfg, ds,
-                                                        idxs))
     stage("ground_truth", lambda: ds.gt)
+    base_bytes = stage("write_corpus", lambda: files.write_corpus(ds))
+    print(f"[files] corpus in {files.root}: base.fvecs {base_bytes} B, "
+          f"learn.fvecs, query.fvecs, gt.ivecs written in "
+          f"{stages['write_corpus']:.2f} s", flush=True)
+    first = {"ivfadc": run_driver(ivfadc_eval.main, files.argv("ivfadc"),
+                                  COLD["ivfadc"], "ivfadc run 1")}
+    if tk.adc_scan_slots.launches <= 0:
+        raise AssertionError("ivfadc_eval over files never launched the scan "
+                             "kernel")
+    index = first["ivfadc"]["index"]
+    stages.update(first["ivfadc"]["stages"]["seconds"])
     index.scan_layout = "auto"
     print(f"[main] store {index.store.ntotal} codes, max list "
           f"{index.store.max_list_size()}, auto layout -> "
@@ -439,7 +651,8 @@ def run(device, p: dict) -> list:
     phase_determinism(ds, p, device)
 
     # 8-9. the grouping main path at the flagship point, then its layers
-    gkernels, gi, gresults = run_grouping(device, p, cfg, ds, index, idxs)
+    gkernels, gi, gresults, first["grouping"] = run_grouping(
+        device, p, cfg, ds, files)
     kernels += gkernels
 
     # 10. the query surface
@@ -447,6 +660,9 @@ def run(device, p: dict) -> list:
 
     # 11. the scan lab, through the index read back from disk
     kernels += run_lab(device, cfg, ds, index, results)
+
+    # 12. run 2 of both drivers from the files, disk_rerank, vector_add
+    run_files(device, files, ds, first)
     return kernels
 
 
@@ -768,37 +984,38 @@ def phase_determinism(ds, p: dict, device) -> None:
           f"{runs[0][1]:.3f} s / {runs[1][1]:.3f} s", flush=True)
 
 
-def run_grouping(device, p: dict, cfg, ds, index, idxs):
-    """Phases 8-9 at the flagship point over phase 4's corpus; returns the
-    grouping kernel's result records, the flagship index and its search
-    results at each slot width."""
+def run_grouping(device, p: dict, cfg, ds, files: SmokeFiles):
+    """Phases 8-9 at the flagship point over phase 4's files; returns the
+    grouping kernels' result records, the flagship index, its search
+    results at each slot width and the driver command's result."""
     import dataclasses
 
     import torch
-    from ivfhnsw_tpu_torch import IVFADCGroupingIndex
     from ivfhnsw_tpu_torch.drivers import common as C
+    from ivfhnsw_tpu_torch.drivers import grouping_eval
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_lab as gl
     from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.ops.grouping import query_terms
-    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
+    from ivfhnsw_tpu_torch.tools import grouping_probe
+    from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
 
     gcfg = dataclasses.replace(
         cfg, index=dataclasses.replace(cfg.index, nsubc=FLAGSHIP["nsubc"],
                                        do_opq=FLAGSHIP["do_opq"]),
         search=dataclasses.replace(cfg.search,
                                    do_pruning=FLAGSHIP["do_pruning"]))
-    stages = {}
 
-    # 8. the main path, in the grouping driver's order (drivers/
-    # grouping_eval.py::build), with the coarse centroids and assignments
-    # of phase 4
+    # 8. the main path: the grouping driver's command over the files, with
+    # the coarse centroids and assignments that phase 4's run wrote
     tg.grouping_scan_slots.launches = 0
-    gi = IVFADCGroupingIndex(gcfg.index, device)
-    gi.set_centroids(index.centroids)
-    gen = torch.Generator(device=device).manual_seed(0)
-    timed(stages, "neighbors", gi.compute_neighbor_centroids, device)
-    timed(stages, "opq_pq", lambda: C.setup_pq(gi, gcfg, ds, gen), device)
-    stages.update(C.build_or_read_index(gi, gcfg, ds, idxs, grouping=True))
+    g1 = run_driver(grouping_eval.main, files.argv("grouping"),
+                    COLD["grouping"], "grouping run 1")
+    if tg.grouping_scan_slots.launches <= 0:
+        raise AssertionError("grouping_eval over files never launched the "
+                             "grouping kernel")
+    gi = g1["index"]
+    stages = dict(g1["stages"]["seconds"])
     gsizes = gi.store.grouped(gi.nsubc).group_sizes
     print(f"[grouping] store {gi.store.ntotal} codes in {gi.nc} groups x "
           f"{gi.nsubc} subgroups, max group {int(gsizes.max())}, alphas "
@@ -849,7 +1066,7 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs):
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
 
     # 9. on the path's own schedule for one 8192-query batch
-    kernels = []
+    kernels, bounds, plain_times = [], {}, {}
     params = gcfg.search
     q = torch.tensor(ds.queries[:SEARCH_BATCH], device=device)
     B, st, gv = q.shape[0], gi.store, gi.store.grouped(gi.nsubc)
@@ -875,8 +1092,11 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs):
         args = (luts(), gi.norm_pq.centroids, t2, st.codes_t,
                 st.norm_codes_t, gv.subc_t, start, length, bias, seg, gran)
         dists = tg.grouping_scan_slots(*args)
-        err = compare(dists, tg.grouping_scan_slots_plain(*args),
-                      f"grouping main-path gran={gran}")
+        ref = tg.grouping_scan_slots_plain(*args)
+        err = compare(dists, ref, f"grouping main-path gran={gran}")
+        if not torch.equal(dists, ref):
+            raise AssertionError(f"grouping main-path gran={gran}: kernel "
+                                 "not torch.equal to its plain version")
         topk = lambda: tg.topk_labels(dists, start, st.ids_t, params.k, gran)
         core = lambda: gi._search_fused(q, params, params.nprobe, nslots,
                                         gran, "topk", False)
@@ -887,36 +1107,57 @@ def run_grouping(device, p: dict, cfg, ds, index, idxs):
                   "schedule": device_ms(sched), "luts": device_ms(luts),
                   "scan": ms, "topk_ids": device_ms(topk),
                   "search_core": device_ms(core)}
-        valid = int(length.sum())
-        kept = int((~torch.isinf(dists)).sum())
-        nbytes = (valid * (st.code_m + 2) + dists.numel() * 4
-                  + B * ((st.code_m + 1) * 1024 + t2[0].numel() * 4))
+        b = grouping_scan_bound(args[:-1], dists, gran)
+        valid, kept = b.pop("filled_lanes"), b.pop("kept_lanes")
         print(f"[gkernel] main-path gran={gran} B={B} slots={nslots} lane "
               f"fill {valid / dists.numel():.3f}, unpruned lanes "
               f"{kept / max(valid, 1):.3f} of filled: kernel {ms:.4f} ms "
-              f"({nbytes / ms / 1e6:.1f} GB/s of codes+output+tables), plain "
-              f"{plain_ms:.4f} ms, max_abs_err {err!r}", flush=True)
+              f"(bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+              f"{b['bound_ms'] / ms:.3f} of the kernel's time; lookups "
+              f"{b['lookup_ms']:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"torch.equal to plain, max_abs_err {err!r}", flush=True)
         print(f"[glayers] gran={gran} B={B} ms " + json.dumps(
             {k: round(v, 4) for k, v in layers.items()}), flush=True)
+        bounds[gran] = b
         kernels.append({"name": f"grouping_scan_slots_gran{gran}",
                         "route": "cuda", "source": GROUPING_SOURCE,
                         "replaces": GROUPING_KERNELS[gran],
                         "launches": launches[gran], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms,
-                        **scan_bound([args[i] for i in (0, 1, 3, 4, 6, 7)],
-                                     dists.numel(),
-                                     st.code_m + 2, st.code_m + 2,
-                                     extra_bytes=t2.numel() * 4
-                                     + seg.numel() * 4,
-                                     lookups_per_lane=st.code_m + 2),
+                        "ms": ms, "plain_ms": plain_ms, **b,
                         "library_ms": None})
-    return kernels, gi, results
+        plain_times[gran] = plain_ms
+
+    # the engine's kernel and the lab's design steps, each against the
+    # kernel as first ported, in turns
+    gl.reset_launches()
+    records = grouping_probe.run(gi, ds.queries, params, device,
+                                 batch=SEARCH_BATCH,
+                                 log=lambda m: print(m, flush=True))
+    idle = [n for n, c in gl.LAUNCHES.items() if c <= 0]
+    if idle:
+        raise AssertionError(f"grouping lab kernels never launched: {idle}")
+    for r in records:
+        g = r["gran"]
+        if r["name"] == grouping_probe.ENGINE:
+            next(k for k in kernels if k["name"].endswith(f"gran{g}"))[
+                "over_direct_in_turns"] = r["over_baseline"]
+        elif r["name"].startswith("lab_"):
+            kernels.append({
+                "name": f"grouping_{r['name']}_gran{g}", "route": "cuda",
+                "source": GROUPING_LAB_SOURCE,
+                "replaces": GROUPING_KERNELS[g],
+                "launches": gl.LAUNCHES[r["name"][4:]],
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": plain_times[g], **bounds[g],
+                "library_ms": None,
+                "over_direct_in_turns": r.get("over_baseline")})
+    return kernels, gi, results, g1
 
 
 def grouping_sched(gi, probes, term1, scan, ssz, params, nslots: int,
                    gran: int):
     """The flagship's slot schedule of one batch, as its fused engine lays
-    it out (ops/cuda/grouping_scan.py::search_core)."""
+    it out (ops/cuda/grouping_scan.py::scan_inputs)."""
     import torch
     from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     eff = torch.where(scan, ssz, 0).sum(dim=2)

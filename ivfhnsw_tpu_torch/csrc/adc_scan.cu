@@ -75,7 +75,7 @@
 //         stores are coalesced. The output streams through L2 once
 //         (st.global.cs) and should not evict the code store; a run of empty
 //         slots (half of a schedule's slots) is one fill of 16-byte +inf
-//         stores by all threads.
+//         stores by all threads (fill_inf, scan_common.cuh).
 //   min:  each warp takes slots warp, warp+nwarps, ...; its lanes stride
 //         the slot's codes (coalesced rows), keep a running fminf, and a
 //         __shfl_xor_sync tree reduces the warp; lane 0 stores one float.
@@ -86,7 +86,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"
+
 namespace {
+
+using scan_common::fill_inf;
 
 constexpr int KSUB = 256;
 constexpr int THREADS = 256;
@@ -126,23 +130,6 @@ __device__ __forceinline__ float lane_sum(const float* s_lut,
     for (int m = 0; m < M; ++m) acc += s_lut[m * KSUB + c[m]];
   }
   return acc;
-}
-
-// All threads: n floats of +inf at o, by 16-byte streaming stores where o
-// and n allow.
-__device__ __forceinline__ void fill_inf(float* o, int64_t n) {
-  if (((reinterpret_cast<uintptr_t>(o) | static_cast<uintptr_t>(n * 4)) &
-       15u) == 0) {
-    const float4 inf4 = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
-    float4* o4 = reinterpret_cast<float4*>(o);
-    for (int64_t i = threadIdx.x; i < n / 4; i += blockDim.x) {
-      __stcs(o4 + i, inf4);
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-      __stcs(o + i, INFINITY);
-    }
-  }
 }
 
 __global__ void __launch_bounds__(THREADS)

@@ -5,8 +5,14 @@ stored base vectors, the ground truth is the identity, and a k=1, nprobe=1
 search (``IVFADCIndex.search_enn``) must find each vector itself. Logs
 Recall@1 and the time per query.
 
-Usage (reference ``-flag value`` grammar, plus -synthetic and -device,
-which defaults to cuda; -device cpu runs the kernels' plain versions):
+Usage (the flags of ``ivfadc_eval``: the reference ``-flag value`` grammar
+with its -path_* files, plus -synthetic and -device, which defaults to
+cuda; -device cpu runs the kernels' plain versions):
+    python -m ivfhnsw_tpu_torch.drivers.enn -d 128 -nc 16384 \\
+        -path_base b.bvecs -path_learn l.bvecs -path_q q.bvecs \\
+        -path_gt gt.ivecs -path_centroids c.fvecs -path_pq x.pq \\
+        -path_norm_pq x.norm_pq -path_precomputed_idxs idxs.ivecs \\
+        -path_index x.index -nb 1000000000 -nt 10000000 -nq 10000
     python -m ivfhnsw_tpu_torch.drivers.enn -synthetic 0 \\
         -d 128 -nc 4096 -code_size 16 -nb 2000000 -nt 200000 -nq 10000
 """
@@ -21,9 +27,10 @@ from ivfhnsw_tpu_torch.drivers.ivfadc_eval import build
 
 def main(argv=None) -> float:
     cfg, extras = C.parse_driver_args(("synthetic", "device"), argv)
-    index, ds = build(cfg, extras)
+    index, ds, _ = build(cfg, extras)
     nq = min(cfg.nq or 10_000, ds.total_base)
-    queries = ds.base[:nq]
+    _, first = next(ds.base_batches())
+    queries = first[:nq]
     index.search_enn(queries[:min(256, nq)])  # warm-up (kernel build and load)
     w = C.StopW()
     _, labels = index.search_enn(queries)

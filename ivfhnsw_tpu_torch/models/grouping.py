@@ -19,13 +19,16 @@ Search engines:
 - ``"torch"`` — the portable gather + top-k path over the subgroup lists,
   counterpart of the JAX ``_grouping_search_core`` and the oracle for the
   fused one;
-- ``"fused"`` — ``ops.cuda.grouping_scan.search_core`` with the
-  hand-written grouping scan kernel, counterpart of the JAX ``"pallas"``
-  engine;
+- ``"fused"`` — ``ops.cuda.grouping_scan`` (``scan_inputs``, then
+  ``scan_topk``) with the hand-written grouping scan kernel, counterpart
+  of the JAX ``"pallas"`` engine;
 - ``"auto"`` — ``"fused"``.
 
 ``search`` and ``search_device`` run them through the per-batch core of
-``IVFADCIndex``; ``scan_slot_demand`` counts group-granular slots.
+``IVFADCIndex``; ``scan_slot_demand`` counts group-granular slots;
+``search_disk`` reranks 2k candidates against the raw base file on the host.
+``write`` / ``read`` take the reference's Grouping ``.index`` format,
+byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu_torch.ops.grouping import probe_budget, query_terms
 from ivfhnsw_tpu_torch.ops.pq import _pq_ip_luts
 from ivfhnsw_tpu_torch.ops.segment import segment_sum
+from ivfhnsw_tpu_torch.utils import io
 from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
+from ivfhnsw_tpu_torch.utils.recall import rerank_order
 
 ALPHA_BATCH = 16384  # points per alpha/add sub-batch (JAX alpha_pass default)
 
@@ -134,22 +139,112 @@ class IVFADCGroupingIndex(IVFADCIndex):
         idx.inter_centroid_dists = idx._tensor(inter_centroid_dists)
         return idx
 
+    # ------------------------------------------------------------------
+    # Serialization: the reference's Grouping .index format
+    # (IndexIVF_HNSW_Grouping.cpp:397-483), byte-identical to the JAX
+    # package's ``IVFADCGroupingIndex.write``:
+    # [u64 d | u64 nc | u64 nsubc | nc x lenvec<u32> ids | nc x lenvec<u8>
+    #  codes | nc x lenvec<u8> norm_codes (each group's subgroups
+    #  concatenated in subc order) | nc x lenvec<u32> nn_centroid_idxs |
+    #  nc x lenvec<u32> subgroup_sizes | lenvec<f32> alphas |
+    #  lenvec<f32> centroid_norms | nc x lenvec<f32> inter_centroid_dists]
+    # where lenvec<T> = [u32 count | count*T].
+    # ------------------------------------------------------------------
+
     def write(self, path: str, do_trunc: bool = True) -> None:
-        """Not ported yet: the grouping index has its own ``.index`` layout
-        (the JAX package's ``IVFADCGroupingIndex.write``), not IVFADC's."""
-        raise NotImplementedError("the grouping .index format is not ported "
-                                  "yet")
+        """Write the index in the reference's Grouping format. A group's
+        subgroups are contiguous in the flat store, so the per-group
+        payloads are the flat arrays counted by group."""
+        store = self._ensure_store()
+        if self.alphas is None or self.nn_centroid_idxs is None:
+            raise RuntimeError("grouping index has no alphas or neighbours "
+                               "to write: build or read it first")
+        sub_sizes = np.diff(store.list_offsets.astype(np.int64)).reshape(
+            self.nc, self.nsubc)
+        gsizes = sub_sizes.sum(axis=1)
+        with open(path, "wb" if do_trunc else "ab") as f:
+            io.write_variable(f, self.d, "<u8")
+            io.write_variable(f, self.nc, "<u8")
+            io.write_variable(f, self.nsubc, "<u8")
+            io.write_len_series(f, store.ids.astype("<u4"), gsizes)
+            io.write_len_series(f, store.codes, gsizes * self.config.pq_m)
+            io.write_len_series(f, store.norm_codes, gsizes)
+            io.write_len_rows(
+                f, self.nn_centroid_idxs.cpu().numpy().astype("<u4"))
+            io.write_len_rows(f, sub_sizes.astype("<u4"))
+            io.write_len_vector(f, self.alphas.cpu().numpy().astype("<f4"))
+            io.write_len_vector(
+                f, self.centroid_norms.cpu().numpy().astype("<f4"))
+            io.write_len_rows(
+                f, self.inter_centroid_dists.cpu().numpy().astype("<f4"))
 
     def read(self, path: str) -> None:
-        """Not ported yet (see :meth:`write`)."""
-        raise NotImplementedError("the grouping .index format is not ported "
-                                  "yet")
+        """Load a Grouping ``.index`` file whose (d, nc, nsubc) equal this
+        index's config (else ValueError): the subgroup lists, neighbour
+        ids, alphas and inter-centroid distances, with their tensors on
+        this index's device. The builder is seeded from the lists, so
+        ``add_batch`` + ``finalize`` extend the store (the alpha statistics
+        are not in the file: alphas learned later start from zero sums).
+        The centroid norms, when the file has all nc of them, replace this
+        index's."""
+        buf = io.read_file_u8(path)
+        if buf.size < 24:
+            raise ValueError(f"{path}: too short for a grouping index file")
+        d, nc, nsubc = (int(v) for v in buf[:24].view("<u8"))
+        if (d, nc, nsubc) != (self.d, self.nc, self.nsubc):
+            raise ValueError(f"index file (d={d}, nc={nc}, nsubc={nsubc}) != "
+                             f"config ({self.d}, {self.nc}, {self.nsubc})")
+        ids, _, pos = io.read_len_series(buf, 24, nc, "<u4")
+        codes, _, pos = io.read_len_series(buf, pos, nc, "u1")
+        norm_codes, _, pos = io.read_len_series(buf, pos, nc, "u1")
+        nn, pos = io.read_len_rows(buf, pos, nc, nsubc, "<u4")
+        sub_sizes, pos = io.read_len_rows(buf, pos, nc, nsubc, "<u4")
+        alphas, _, pos = io.read_len_series(buf, pos, 1, "<f4")
+        cnorms, _, pos = io.read_len_series(buf, pos, 1, "<f4")
+        icd, pos = io.read_len_rows(buf, pos, nc, nsubc, "<f4")
+        offsets = np.zeros(nc * nsubc + 1, np.int64)
+        np.cumsum(sub_sizes.astype(np.int64).reshape(-1), out=offsets[1:])
+        if offsets[-1] != ids.shape[0]:
+            raise ValueError(f"{path}: subgroup sizes sum to {offsets[-1]}, "
+                             f"the lists hold {ids.shape[0]} ids")
+        self._seed_builder(codes.reshape(-1, self.config.pq_m),
+                           ids.astype(np.int32), norm_codes, offsets)
+        self.nn_centroid_idxs = torch.tensor(nn.astype(np.int64),
+                                             device=self.device)
+        self.alphas = self._tensor(alphas)
+        self.inter_centroid_dists = self._tensor(icd)
+        if cnorms.size == nc:
+            self.centroid_norms = self._tensor(cnorms)
+
+    def dump_inter_centroid_dists(self, path: str) -> None:
+        """Text dump of the centroid-to-neighbour distances
+        (IndexIVF_HNSW_Grouping.cpp:633-653), in the reference's wording."""
+        icd = self.inter_centroid_dists.cpu().numpy()
+        with open(path, "w") as f:
+            for i in range(self.nc):
+                for subc in range(self.nsubc):
+                    f.write(f"distance of centriod {i} to centriod {subc} "
+                            f"is {icd[i, subc]:f}\n")
 
     def scan_inputs(self, q, params, gran=None):
-        """Unsupported: the grouping scan takes other inputs
-        (``ops.cuda.grouping_scan.search_core``), not IVFADC's."""
+        """Unsupported: the grouping scan takes other inputs, which
+        :meth:`grouping_scan_inputs` builds, not IVFADC's."""
         raise NotImplementedError("scan_inputs builds the IVFADC scan's "
-                                  "inputs; the grouping index has its own")
+                                  "inputs; use grouping_scan_inputs")
+
+    def grouping_scan_inputs(self, q: torch.Tensor, params: SearchParams,
+                             gran: int | None = None) -> tuple:
+        """The fused engine's scan inputs (lut, norm_tab, t2, codes,
+        norm_codes, subc, start, length, bias, seg) for batch ``q`` [B, d]
+        on this index's device under ``params``, at slot width ``gran``
+        (default: the resolved layout's), as a search of that batch builds
+        them."""
+        self._ensure_store()
+        nprobe = min(params.nprobe, self.nc)
+        gran = gran or self.scan_gran()
+        return self._fused_inputs(q, params, nprobe,
+                                  self._scan_slots(params, nprobe, gran),
+                                  gran, self._exact_reduce(params))
 
     def enable_routed_coarse(self, *args, **kwargs):
         """Unsupported: the grouping engines take exact probe selection
@@ -356,21 +451,60 @@ class IVFADCGroupingIndex(IVFADCIndex):
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
                       exact_reduce: str, two_phase: bool):
-        """Fused engine: ``ops.cuda.grouping_scan.search_core`` (wide top-k
-        only: the JAX grouping engine has no two-phase top-k)."""
+        """Fused engine: :meth:`_fused_inputs`, then
+        ``ops.cuda.grouping_scan.scan_topk`` (wide top-k only: the JAX
+        grouping engine has no two-phase top-k)."""
         if two_phase:
             raise NotImplementedError("the grouping engines have no "
                                       "two-phase top-k; use scan_topk='auto'")
+        args = self._fused_inputs(q, params, nprobe, nslots, gran,
+                                  exact_reduce)
+        return fused.scan_topk(args, self.store.ids_t, params.k, gran)
+
+    def _fused_inputs(self, q: torch.Tensor, params: SearchParams,
+                      nprobe: int, nslots: int, gran: int,
+                      exact_reduce: str) -> tuple:
+        """``ops.cuda.grouping_scan.scan_inputs`` of batch ``q`` over this
+        index."""
         store, gv = self.store, self._grouped()
-        return fused.search_core(
+        return fused.scan_inputs(
             q, self.centroids, self.centroid_norms, self.pq.codebooks,
-            self.norm_pq.centroids, store.codes_t, store.ids_t,
-            store.norm_codes_t, gv.subc_t, gv.group_offsets_t, gv.sub_sizes_t,
+            self.norm_pq.centroids, store.codes_t, store.norm_codes_t,
+            gv.subc_t, gv.group_offsets_t, gv.sub_sizes_t,
             self.nn_centroid_idxs, self.alphas, self.inter_centroid_dists,
-            params.max_codes, nprobe=nprobe, k=params.k, nslots=nslots,
-            gran=gran, coarse_block=self._coarse_block_for(q.shape[0]),
+            params.max_codes, nprobe=nprobe, nslots=nslots, gran=gran,
+            coarse_block=self._coarse_block_for(q.shape[0]),
             do_pruning=params.do_pruning, exact_reduce=exact_reduce,
             lut_queries=self._rotate(q))
+
+    def search_disk(self, queries, params: SearchParams,
+                    base_file: io.XvecFile):
+        """searchDisk (IndexIVF_HNSW_Grouping.cpp:365-395): an ANN search
+        for 2k candidates, then an exact L2 rerank against the raw base
+        file with the distance-then-label tiebreak
+        (``utils.recall.rerank_order``). The candidates' rows are gathered
+        from the file and reranked on the host, query by query, as the
+        reference does; only the ANN search runs on the index's device.
+        Returns (dists [nq, k] f32, labels [nq, k] int64) on the host,
+        padded with (+inf, -1) where fewer than k candidates were found."""
+        p2 = SearchParams(k=2 * params.k, nprobe=params.nprobe,
+                          max_codes=params.max_codes,
+                          do_pruning=params.do_pruning,
+                          scan_budget=params.scan_budget)
+        _, cand = self.search(queries, p2)
+        queries = np.asarray(queries, np.float32)
+        nq = queries.shape[0]
+        out_d = np.full((nq, params.k), np.inf, np.float32)
+        out_l = np.full((nq, params.k), -1, np.int64)
+        for i in range(nq):
+            labels = cand[i][cand[i] >= 0]
+            vecs = base_file.gather(labels)
+            exact = ((vecs - queries[i][None]) ** 2).sum(1)
+            dd, ll = rerank_order(exact, labels)
+            n = min(params.k, dd.shape[0])
+            out_d[i, :n] = dd[:n]
+            out_l[i, :n] = ll[:n]
+        return out_d, out_l
 
     def _default_params(self) -> SearchParams:
         return SearchParams(k=10, nprobe=self.nprobe,

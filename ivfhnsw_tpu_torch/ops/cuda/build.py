@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` file exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>_<hash>.so`` at
-the root of the checkout, at first use. The hash covers the source and the
-flags, so an edited source builds anew and a stale library is never loaded.
+the root of the checkout, at first use. The hash covers the source, every
+header under ``csrc/`` (``*.cuh``, ``*.h``: a source may include any of
+them) and the flags, so an edited source or header builds anew and a stale
+library is never loaded.
 The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library in ``lib<name>_<hash>.log``.
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -42,8 +45,12 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Path of the shared library built from ``csrc/<name>.cu``."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+                     + glob.glob(os.path.join(CSRC_DIR, "*.h")))
+    for path in [os.path.join(CSRC_DIR, name + ".cu"), *headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

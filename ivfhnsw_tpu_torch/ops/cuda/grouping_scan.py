@@ -3,7 +3,8 @@
 ``csrc/grouping_scan.cu``.
 
 Counterpart of ``ivfhnsw_tpu/ops/pallas/grouping_scan.py::
-grouping_pallas_search_core`` (exact coarse only). The steps:
+grouping_pallas_search_core`` (exact coarse only), as :func:`scan_inputs`
+(steps 1-4) then :func:`scan_topk` (steps 5-6). The steps:
 
 1. exact coarse top-``nprobe``;
 2. neighbour distances, the pruning threshold, term1 [B, P] and the term2
@@ -105,6 +106,60 @@ def smem_bytes(M: int, P: int, nsubc: int) -> int:
     return ((M + 1) * KSUB + P * nsubc) * 4
 
 
+def check_scan_args(fn: str, lut: torch.Tensor, norm_tab: torch.Tensor,
+                    t2: torch.Tensor, codes: torch.Tensor,
+                    norm_codes: torch.Tensor, subc: torch.Tensor,
+                    start: torch.Tensor, length: torch.Tensor,
+                    bias: torch.Tensor, seg: torch.Tensor, gran: int,
+                    extra_smem: int = 0) -> tuple:
+    """Raise unless the arguments are what a grouping scan kernel takes
+    (device, dtype, shape, contiguity, sizes below 2^31, the tables plus
+    ``extra_smem`` bytes within a block's shared memory), for wrapper
+    ``fn``. Returns (B, S, M, P, nsubc)."""
+    B, S = start.shape
+    N, M = codes.shape
+    P, nsubc = t2.shape[1:]
+    dev = lut.device
+    _check("lut", lut, torch.float32, (B, M, KSUB), dev, fn)
+    _check("norm_tab", norm_tab, torch.float32, (KSUB,), dev, fn)
+    _check("t2", t2, torch.float32, (B, P, nsubc), dev, fn)
+    _check("codes", codes, torch.uint8, (N, M), dev, fn)
+    _check("norm_codes", norm_codes, torch.uint8, (N,), dev, fn)
+    _check("subc", subc, torch.uint8, (N,), dev, fn)
+    _check("start", start, torch.int64, (B, S), dev, fn)
+    _check("length", length, torch.int32, (B, S), dev, fn)
+    _check("bias", bias, torch.float32, (B, S), dev, fn)
+    _check("seg", seg, torch.int32, (B, S), dev, fn)
+    if gran <= 0 or max(B, S * gran, M, P * nsubc) >= 2 ** 31:
+        raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M} "
+                         f"gran={gran} P={P} nsubc={nsubc}")
+    need = smem_bytes(M, P, nsubc) + extra_smem
+    if need > MAX_SMEM:
+        raise ValueError(f"{fn}: LUT + term2 table need {need} B of shared "
+                         f"memory, above the {MAX_SMEM} B a block may use")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    return B, S, M, P, nsubc
+
+
+def launch_scan(fn: str, entry, args: tuple, gran: int, dims: tuple,
+                *tail: int) -> torch.Tensor:
+    """Launch C entry point ``entry`` (the ten scan tensors, the output, B,
+    S, M, gran, P, nsubc, ``tail``, the stream) on the current stream of
+    the tensors' CUDA device into a new [B, S*gran] f32 output; raises if
+    the launch fails."""
+    B, S, M, P, nsubc = dims
+    dev = args[0].device
+    out = torch.empty((B, S * gran), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(*(t.data_ptr() for t in args), out.data_ptr(), B, S, M,
+                   gran, P, nsubc, *tail, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    return out
+
+
 def grouping_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
                         t2: torch.Tensor, codes: torch.Tensor,
                         norm_codes: torch.Tensor, subc: torch.Tensor,
@@ -122,43 +177,13 @@ def grouping_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
     CPU tensors go to the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback. ``launches`` counts
     kernel launches."""
-    B, S = start.shape
-    N, M = codes.shape
-    P, nsubc = t2.shape[1:]
-    dev = lut.device
     fn = "grouping_scan_slots"
-    _check("lut", lut, torch.float32, (B, M, KSUB), dev, fn)
-    _check("norm_tab", norm_tab, torch.float32, (KSUB,), dev, fn)
-    _check("t2", t2, torch.float32, (B, P, nsubc), dev, fn)
-    _check("codes", codes, torch.uint8, (N, M), dev, fn)
-    _check("norm_codes", norm_codes, torch.uint8, (N,), dev, fn)
-    _check("subc", subc, torch.uint8, (N,), dev, fn)
-    _check("start", start, torch.int64, (B, S), dev, fn)
-    _check("length", length, torch.int32, (B, S), dev, fn)
-    _check("bias", bias, torch.float32, (B, S), dev, fn)
-    _check("seg", seg, torch.int32, (B, S), dev, fn)
-    if gran <= 0 or max(B, S, M, gran, P * nsubc) >= 2 ** 31:
-        raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M} "
-                         f"gran={gran} P={P} nsubc={nsubc}")
-    if smem_bytes(M, P, nsubc) > MAX_SMEM:
-        raise ValueError(f"{fn}: LUT + term2 table need "
-                         f"{smem_bytes(M, P, nsubc)} B of shared memory, "
-                         f"above the {MAX_SMEM} B a block may use")
-    if dev.type == "cpu":
-        return grouping_scan_slots_plain(lut, norm_tab, t2, codes, norm_codes,
-                                         subc, start, length, bias, seg, gran)
-    if dev.type != "cuda":
-        raise ValueError(f"{fn}: no kernel for device {dev}")
-    out = torch.empty((B, S * gran), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(lut.data_ptr(), norm_tab.data_ptr(), t2.data_ptr(),
-                       codes.data_ptr(), norm_codes.data_ptr(),
-                       subc.data_ptr(), start.data_ptr(), length.data_ptr(),
-                       bias.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                       B, S, M, gran, P, nsubc, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    args = (lut, norm_tab, t2, codes, norm_codes, subc, start, length, bias,
+            seg)
+    dims = check_scan_args(fn, *args, gran)
+    if lut.device.type == "cpu":
+        return grouping_scan_slots_plain(*args, gran)
+    out = launch_scan(fn, _kernel(), args, gran, dims)
     grouping_scan_slots.launches += 1
     return out
 
@@ -166,22 +191,22 @@ def grouping_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
 grouping_scan_slots.launches = 0
 
 
-def search_core(queries: torch.Tensor, centroids: torch.Tensor,
+def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
                 centroid_norms: torch.Tensor, codebooks: torch.Tensor,
                 norm_centroids: torch.Tensor, codes: torch.Tensor,
-                ids: torch.Tensor, norm_codes: torch.Tensor,
-                subc: torch.Tensor, group_offsets: torch.Tensor,
-                sub_sizes: torch.Tensor, nn_idxs: torch.Tensor,
-                alphas: torch.Tensor, inter_dists: torch.Tensor,
-                max_codes: int, *, nprobe: int, k: int, nslots: int,
-                gran: int, coarse_block: int, do_pruning: bool,
+                norm_codes: torch.Tensor, subc: torch.Tensor,
+                group_offsets: torch.Tensor, sub_sizes: torch.Tensor,
+                nn_idxs: torch.Tensor, alphas: torch.Tensor,
+                inter_dists: torch.Tensor, max_codes: int, *, nprobe: int,
+                nslots: int, gran: int, coarse_block: int, do_pruning: bool,
                 exact_reduce: str = "topk",
-                lut_queries: torch.Tensor | None = None):
-    """End-to-end Grouping(+Pruning) search of a query batch on the fused
-    engine. ``lut_queries`` (the OPQ-rotated queries) replaces ``queries``
-    for the LUTs; coarse selection and the grouping terms stay in the
-    original space. Returns (dists [B, k] f32 ascending, labels [B, k]
-    int64, -1 where the distance is +inf)."""
+                lut_queries: torch.Tensor | None = None) -> tuple:
+    """Steps 1-4 of the fused Grouping(+Pruning) search of a query batch
+    (coarse, grouping terms, schedule, LUTs): the scan inputs (lut,
+    norm_tab, t2, codes, norm_codes, subc, start, length, bias, seg) in
+    :func:`grouping_scan_slots`' order. ``lut_queries`` (the OPQ-rotated
+    queries) replaces ``queries`` for the LUTs; coarse selection and the
+    grouping terms stay in the original space."""
     qc_dists, probes = streaming_topk_l2(
         queries, centroids, nprobe, block=coarse_block,
         point_sqnorms=centroid_norms, exact_reduce=exact_reduce)
@@ -195,6 +220,13 @@ def search_core(queries: torch.Tensor, centroids: torch.Tensor,
         nslots, gran)
     lut = build_luts(queries if lut_queries is None else lut_queries,
                      codebooks)
-    dists = grouping_scan_slots(lut, norm_centroids, t2, codes, norm_codes,
-                                subc, start, length, bias, seg, gran)
-    return topk_labels(dists, start, ids, k, gran)
+    return (lut, norm_centroids, t2, codes, norm_codes, subc, start, length,
+            bias, seg)
+
+
+def scan_topk(args: tuple, ids: torch.Tensor, k: int, gran: int):
+    """Steps 5-6 over :func:`scan_inputs`' ``args``: the scan, the bin-32
+    top-k and id resolution. Returns (dists [B, k] f32 ascending, labels
+    [B, k] int64, -1 where the distance is +inf)."""
+    return topk_labels(grouping_scan_slots(*args, gran), args[6], ids, k,
+                       gran)

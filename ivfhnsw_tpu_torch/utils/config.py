@@ -8,6 +8,7 @@ examples/run_*.sh parameter blocks port verbatim.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 from dataclasses import dataclass, field, fields
@@ -96,8 +97,8 @@ class RunConfig:
     path_gt: str = ""
     path_centroids: str = ""
     path_precomputed_idxs: str = ""
-    path_info: str = ""
-    path_edges: str = ""
+    path_info: str = ""     # HNSW graph info file: accepted, unused (no graph)
+    path_edges: str = ""    # HNSW graph edges file: accepted, unused
     path_pq: str = ""
     path_opq_matrix: str = ""
     path_norm_pq: str = ""
@@ -112,6 +113,9 @@ class RunConfig:
         for k, v in raw.items():
             setattr(cfg, k, v)
         return cfg
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
 
 
 # Flags routed into the nested dataclasses; everything else is flat on RunConfig.

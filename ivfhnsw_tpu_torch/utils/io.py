@@ -14,7 +14,9 @@ The reference (its utils.h:59-127) uses two on-disk layouts:
   ``[u32 count | count * sizeof(T) payload]``, the records of the ``.index``
   file.
 
-``random_subset`` and ``prefetch`` serve the build drivers.
+``XvecFile`` serves the disk rerank's random-access gathers, ``get_files``
+/ ``check_files`` / ``get_index_name`` the incremental-add driver's segment
+files, ``random_subset`` and ``prefetch`` the build drivers.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+from typing import Iterator
 
 import numpy as np
 
@@ -110,6 +113,20 @@ def write_xvec(path_or_file, data: np.ndarray, append: bool = False) -> None:
         rec.tofile(path_or_file)
 
 
+def iter_xvec_batches(path: str, d: int, batch: int, dtype=None,
+                      limit: int | None = None) -> Iterator[np.ndarray]:
+    """Stream an xvec file in batches of ``batch`` records (the add_batch
+    loop pattern, test_ivfhnsw_sift1b.cpp:142-153), at most ``limit``
+    records in all."""
+    if dtype is None:
+        dtype = XVEC_DTYPES[os.path.splitext(path)[1]]
+    total = xvec_count(path, d, dtype)
+    if limit is not None:
+        total = min(total, limit)
+    for off in range(0, total, batch):
+        yield read_xvec(path, d, min(batch, total - off), off, dtype=dtype)
+
+
 # ---------------------------------------------------------------------------
 # Length-prefixed vectors (read_vector/write_vector, reference utils.h:59-81)
 # ---------------------------------------------------------------------------
@@ -135,18 +152,63 @@ def write_len_series(f, payload: np.ndarray, counts: np.ndarray) -> None:
 def read_len_series(buf: np.ndarray, pos: int, n: int, dtype):
     """Parse n length-prefixed records ([u32 count | count * dtype]) from a
     u8 buffer at ``pos``, record by record. Returns (flat payload (a copy),
-    counts [n] int64, end position)."""
+    counts [n] int64, end position). Raises ValueError when the buffer ends
+    inside a record."""
     dt = np.dtype(dtype)
     counts = np.empty(n, np.int64)
     parts = []
     for i in range(n):
+        if pos + 4 > buf.size:
+            raise ValueError(f"buffer ends before length-prefixed record {i} "
+                             f"of {n}")
         c = int(buf[pos:pos + 4].view("<u4")[0])
         pos += 4
+        if pos + c * dt.itemsize > buf.size:
+            raise ValueError(f"length-prefixed record {i} of {n} holds {c} "
+                             "entries, more than the buffer has left")
         counts[i] = c
         parts.append(buf[pos:pos + c * dt.itemsize])
         pos += c * dt.itemsize
     flat = np.concatenate(parts) if parts else np.empty(0, np.uint8)
     return flat.view(dt).copy(), counts, pos
+
+
+def write_len_rows(f, rows: np.ndarray) -> None:
+    """Each row of a fixed-width 2-D array as a length-prefixed vector:
+    since every record has the same width, the interleaved stream is one
+    [n, 4 + row_bytes] u8 array built with two assignments."""
+    rows = np.ascontiguousarray(rows)
+    n, w = rows.shape[0], int(np.prod(rows.shape[1:]))
+    row_bytes = w * rows.dtype.itemsize
+    out = np.empty((n, 4 + row_bytes), np.uint8)
+    out[:, :4] = np.full(n, w, "<u4")[:, None].view(np.uint8)
+    out[:, 4:] = rows.reshape(n, -1).view(np.uint8)
+    out.tofile(f)
+
+
+def read_len_rows(buf: np.ndarray, pos: int, n: int, w: int,
+                  dtype) -> tuple[np.ndarray, int]:
+    """Parse n fixed-width length-prefixed records ([u32 w | w * dtype])
+    from a u8 buffer in one reshape; returns ([n, w] array (a copy), end
+    position). Raises ValueError unless every count prefix equals w."""
+    dt = np.dtype(dtype)
+    rec = 4 + w * dt.itemsize
+    if buf.size < pos + n * rec:
+        raise ValueError("buffer ends inside a fixed-width length-prefixed "
+                         "series")
+    sect = buf[pos:pos + n * rec].reshape(n, rec)
+    counts = sect[:, :4].copy().view("<u4")[:, 0]
+    if not (counts == w).all():
+        raise ValueError("fixed-width length-prefixed series has ragged "
+                         "records")
+    return sect[:, 4:].copy().view(dt).reshape(n, w), pos + n * rec
+
+
+def read_len_vector(f, dtype) -> np.ndarray:
+    """One [u32 count | count * dtype] record from an open file."""
+    count = int(np.frombuffer(f.read(4), dtype="<u4")[0])
+    dt = np.dtype(dtype)
+    return np.frombuffer(f.read(count * dt.itemsize), dtype=dt)
 
 
 def read_file_u8(path: str) -> np.ndarray:
@@ -168,6 +230,67 @@ def write_variable(f, value, dtype) -> None:
 def read_variable(f, dtype):
     dt = np.dtype(dtype)
     return np.frombuffer(f.read(dt.itemsize), dtype=dt)[0]
+
+
+# ---------------------------------------------------------------------------
+# Random-access single-record reads (readBaseVec/readCentroidVec, reference
+# utils.cpp:96-139), used by the disk-rerank path.
+# ---------------------------------------------------------------------------
+
+class XvecFile:
+    """Random-access view over an xvec file for exact-rerank gathers
+    (searchDisk, IndexIVF_HNSW_Grouping.cpp:365-395)."""
+
+    def __init__(self, path: str, d: int, dtype=None):
+        self.path = path
+        self.d = d
+        self.dtype = (XVEC_DTYPES[os.path.splitext(path)[1]] if dtype is None
+                      else dtype)
+        self._rec = _xvec_dtype(d, self.dtype)
+        self.n = xvec_count(path, d, self.dtype)
+        self._mm = np.memmap(path, dtype=self._rec, mode="r")
+
+    def __len__(self) -> int:
+        return self.n
+
+    def gather(self, indices: np.ndarray) -> np.ndarray:
+        """Rows by id -> [len(indices), d] float32."""
+        rows = self._mm["vec"][np.asarray(indices, dtype=np.int64)]
+        return rows.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Segment-file discovery for the incremental-add pipeline
+# (get_files/check_files/get_index_name/base_vec_num, reference
+# utils.cpp:204-276)
+# ---------------------------------------------------------------------------
+
+def base_vec_num(path: str, d: int, dtype=np.uint8) -> int:
+    """Record count of an xvec file whose size is an exact multiple of the
+    record size (base_vec_num, reference utils.cpp:204-220)."""
+    return xvec_count(path, d, dtype)
+
+
+def get_files(path_dir: str, file_ext: str) -> list[str]:
+    """Sorted filenames in path_dir whose name contains file_ext (and is not
+    exactly file_ext): get_files/is_ext_match, reference utils.cpp:222-262."""
+    return sorted(f for f in os.listdir(path_dir)
+                  if file_ext in f and f != file_ext)
+
+
+def check_files(file_prefix: str, file_list: list[str]) -> None:
+    """Every file must start with file_prefix (check_files, reference
+    utils.cpp:264-271)."""
+    for f in file_list:
+        if not f.startswith(file_prefix):
+            raise ValueError(f"segment file {f!r} does not start with "
+                             f"prefix {file_prefix!r}")
+
+
+def get_index_name(path_idx: str, idx: int) -> str:
+    """'{path}_NN.index' segment index naming (get_index_name, reference
+    utils.cpp:273-275)."""
+    return f"{path_idx}_{idx:02d}.index"
 
 
 # ---------------------------------------------------------------------------

@@ -20,3 +20,15 @@ def recall_at_k(labels: np.ndarray, gt: np.ndarray, ks=(1, 10, 100)) -> dict:
         kk = min(k, labels.shape[1])
         out[k] = float((labels[:, :kk] == true_nn).any(axis=1).mean())
     return out
+
+
+def rerank_order(dists: np.ndarray, labels: np.ndarray, eps: float = 1e-3):
+    """Sort (distance, label) pairs with the reference's comparator `cmp`
+    (utils.cpp:193-202): ascending distance, ties within eps broken by
+    ascending label. Distances fall into eps-wide buckets, so near-equal
+    distances compare equal; then a lexsort by (bucket, label)."""
+    dists = np.asarray(dists)
+    labels = np.asarray(labels)
+    buckets = np.floor(dists / eps).astype(np.int64)
+    order = np.lexsort((labels, buckets))
+    return dists[order], labels[order]

@@ -80,3 +80,30 @@ def scan_bound(args, out_numel: int, row_bytes: int, ops_per_lane: int,
         lookups_per_lane = codes.shape[1] + 1
     return {**bound(nbytes, valid * ops_per_lane),
             "lookup_ms": lookup_ms(valid * lookups_per_lane, lut.device)}
+
+
+def grouping_scan_bound(args, out: torch.Tensor, gran: int) -> dict:
+    """bound() of a grouping scan over ``args`` (lut, norm_tab, t2, codes,
+    norm_codes, subc, start, length, bias, seg) whose output is ``out``
+    [B, S*gran], counting what any implementation of the function must
+    move and do: the LUTs, norm table, term2 tables and schedule (20 B a
+    slot) read once; of the store, one ``subc`` byte per touched row, and
+    the M + 1 code and norm bytes only of rows that are kept (finite in
+    ``out``) for at least one query; the f32 output written once; M + 2
+    f32 additions per kept lane. ``lookup_ms`` (:func:`lookup_ms`) counts
+    M + 2 table lookups per kept lane and the one term2 lookup of a pruned
+    lane. Also "kept_lanes" and "filled_lanes"."""
+    lut, ntab, t2, codes, _, _, start, length = args[:8]
+    N, M = codes.shape
+    kept = torch.isfinite(out).nonzero()                     # [K, 2]
+    rows = start[kept[:, 0], kept[:, 1] // gran] + kept[:, 1] % gran
+    kept_rows = torch.zeros(N, dtype=torch.bool, device=codes.device)
+    kept_rows[rows] = True
+    n_kept, filled = int(kept.shape[0]), int(length.sum())
+    nbytes = (lut.numel() * 4 + ntab.numel() * 4 + t2.numel() * 4
+              + start.numel() * 20 + rows_touched(start, length, N)
+              + int(kept_rows.sum()) * (M + 1) + out.numel() * 4)
+    return {**bound(nbytes, n_kept * (M + 2)),
+            "lookup_ms": lookup_ms(n_kept * (M + 2) + (filled - n_kept),
+                                   lut.device),
+            "kept_lanes": n_kept, "filled_lanes": filled}

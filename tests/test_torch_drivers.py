@@ -1,10 +1,14 @@
 """The PyTorch port's driver commands (ivfadc_eval, grouping_eval, enn):
 ``-device`` defaults to cuda, a CUDA device on a machine without a card is
 an error and never a fall-back to the CPU, and ``-device cpu`` runs each
-driver's rehearsal at a tiny size. Imports no jax.
+driver's rehearsal at a tiny size; on a card, importing drivers.common
+alone leaves TF32 off. Imports no jax.
 """
 
 import importlib
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -12,6 +16,7 @@ import torch
 from ivfhnsw_tpu_torch.drivers import common as C
 
 torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 TINY = ["-synthetic", "0", "-d", "32", "-nc", "64", "-code_size", "8",
         "-nb", "6000", "-nt", "3000", "-nq", "100", "-nprobe", "8",
@@ -53,3 +58,19 @@ def test_cpu_rehearsal_runs_and_prints_recall(name, capsys):
     r1 = [ln for ln in out.splitlines() if ln.startswith("Recall@1:")]
     assert r1 and 0.0 < float(r1[0].split()[1]) <= 1.0, out
     assert "Time per query" in out
+
+
+@pytest.mark.cuda
+def test_driver_module_alone_switches_tf32_off():
+    """exact_nn's ground truth needs full-precision matmuls; importing
+    drivers.common alone, in a fresh interpreter, must leave TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    code = ("import torch; torch.backends.cuda.matmul.allow_tf32 = True; "
+            "torch.backends.cudnn.allow_tf32 = True; "
+            "import ivfhnsw_tpu_torch.drivers.common; "
+            "assert torch.backends.cuda.matmul.allow_tf32 is False; "
+            "assert torch.backends.cudnn.allow_tf32 is False")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

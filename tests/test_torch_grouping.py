@@ -347,7 +347,21 @@ def test_driver_cpu_runs_and_prints_recall():
     assert "alpha pass" in out.stdout and "Time per query" in out.stdout
 
 
-def test_driver_refuses_unported_flags():
-    with pytest.raises(NotImplementedError):
-        grouping_eval.main(["-synthetic", "0", "-device", "cpu", "-nsubc",
-                            "8", "-path_opq_matrix", "x.opq"])
+def test_driver_refuses_unported_flags(tmp_path):
+    """The -path_* flags are served, not refused: the OPQ rotation is
+    written beside the quantizers and loaded by the next run (the files
+    against the JAX package's: tests/test_torch_files.py). What the driver
+    refuses is a flag it does not know."""
+    argv = ["-synthetic", "0", "-device", "cpu", "-d", "32", "-nc", "32",
+            "-code_size", "8", "-nsubc", "8", "-nb", "3000", "-nt", "2000",
+            "-nq", "50", "-nprobe", "8", "-max_codes", "1000", "-k", "10",
+            "-do_opq", "on", "-path_pq", str(tmp_path / "x.pq"),
+            "-path_norm_pq", str(tmp_path / "x.norm_pq"),
+            "-path_opq_matrix", str(tmp_path / "x.opq")]
+    r1 = grouping_eval.main(argv)
+    assert sorted(os.listdir(tmp_path)) == ["x.norm_pq", "x.opq", "x.pq"]
+    r2 = grouping_eval.main(argv)
+    assert r2["stages"]["how"]["pq"] == "loaded"
+    np.testing.assert_array_equal(r2["labels"], r1["labels"])
+    with pytest.raises(ValueError, match="unknown flag"):
+        grouping_eval.main(argv + ["-path_graph", "x.bin"])

@@ -1,9 +1,13 @@
 """The grouping scan wrapper of the PyTorch port (ivfhnsw_tpu_torch.ops.
-cuda.grouping_scan.grouping_scan_slots) and the deterministic segment sum
+cuda.grouping_scan.grouping_scan_slots), its lab variants
+(ops.cuda.grouping_lab), its bound (utils.roofline.grouping_scan_bound),
+the kernel build's hash (ops.cuda.build) and the deterministic segment sum
 (ivfhnsw_tpu_torch.ops.segment.segment_sum): the plain versions on the CPU
-against numpy formulas, and on a card the CUDA kernel against its plain
-version, the fused grouping engine against the torch engine, and k-means
-run twice from one seed.
+against numpy formulas, and on a card the CUDA kernel and every lab variant
+against the plain version (torch.equal, on slots of length 1, 3, gran - 1,
+runs of empty slots, an output whose rows are not 16-byte aligned, and a
+batch pruned whole), the fused grouping engine against the torch engine,
+and k-means run twice from one seed.
 
 This file imports no jax, so it also runs on a machine with a GPU and no
 jax; tests/conftest.py imports jax, so run it there with
@@ -21,13 +25,20 @@ bit-equal to a sequential float32 sum in input order on the CPU; k-means
 centroids of two runs on the card ``torch.equal``.
 """
 
+import os
+import re
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from ivfhnsw_tpu_torch import IndexConfig, IVFADCGroupingIndex, SearchParams
+from ivfhnsw_tpu_torch.ops.cuda import build as kbuild
+from ivfhnsw_tpu_torch.ops.cuda import grouping_lab as gl
 from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
 from ivfhnsw_tpu_torch.ops.segment import segment_sum
+from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
 
 RTOL, ATOL = 1e-4, 1e-3
 
@@ -133,6 +144,150 @@ def test_smem_budget_of_the_flagship_fits():
     assert tg.smem_bytes(16, 32, 64) == (17 * 256 + 32 * 64) * 4 < 48 * 1024
 
 
+def _edge_args(device="cpu", M=16, gran=256, pruned=False):
+    """4 queries x 9 slots whose lengths exercise the kernel's padding
+    paths: 1, 3 and gran - 1 codes (a tail that starts inside, at and one
+    short of a 16-byte store), full slots, a run of two empty slots in the
+    middle and one at the end; query 3 is empty throughout. 40% of the
+    subgroups are pruned (+inf term2), all of them with ``pruned``."""
+    rng = np.random.RandomState(6)
+    B, S, N, P, nsubc = 4, 9, 5000, 4, 8
+    lut = rng.randn(B, M, 256).astype(np.float32)
+    ntab = rng.rand(256).astype(np.float32)
+    t2 = rng.randn(B, P, nsubc).astype(np.float32)
+    t2[rng.rand(B, P, nsubc) < 0.4] = np.inf
+    if pruned:
+        t2[:] = np.inf
+    codes = rng.randint(0, 256, (N, M)).astype(np.uint8)
+    ncodes = rng.randint(0, 256, N).astype(np.uint8)
+    subc = rng.randint(0, nsubc, N).astype(np.uint8)
+    start = rng.randint(0, N - gran, (B, S)).astype(np.int64)
+    length = np.array([[1, 3, 0, 0, gran - 1, gran, 2, gran // 2 + 1, 0]] * B,
+                      np.int32)
+    length[3] = 0
+    bias = rng.randn(B, S).astype(np.float32)
+    seg = rng.randint(0, P, (B, S)).astype(np.int32)
+    arrs = [torch.from_numpy(a).to(device) for a in
+            (lut, ntab, t2, codes, ncodes, subc, start, length, bias, seg)]
+    return arrs + [gran]
+
+
+def test_edge_slots_plain_matches_numpy_formula():
+    args = _edge_args(M=8, gran=16)
+    out = tg.grouping_scan_slots_plain(*args).numpy()
+    ref = _numpy_scan(*[a.numpy() for a in args[:-1]], args[-1])
+    assert np.array_equal(np.isinf(out), np.isinf(ref))
+    fin = np.isfinite(ref)
+    assert fin.any() and np.isinf(out[3]).all()
+    np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-6, atol=1e-5)
+    assert np.isinf(tg.grouping_scan_slots_plain(
+        *_edge_args(M=8, gran=16, pruned=True)).numpy()).all()
+
+
+@pytest.mark.parametrize("variant", sorted(gl.VARIANTS))
+def test_lab_variant_on_cpu_uses_plain_and_counts_no_launch(variant):
+    args = _edge_args(M=8, gran=32)
+    gl.reset_launches()
+    out = gl.grouping_lab_scan(variant, *args)
+    assert gl.LAUNCHES[variant] == 0
+    assert torch.equal(out, tg.grouping_scan_slots_plain(*args))
+    with pytest.raises((TypeError, ValueError)):
+        bad = list(args)
+        bad[7] = bad[7].long()                              # length
+        gl.grouping_lab_scan(variant, *bad)
+
+
+def test_lab_rejects_an_unknown_variant_and_a_schedule_past_shared_memory():
+    args = _edge_args(M=8, gran=32)
+    with pytest.raises(ValueError, match="unknown grouping lab variant"):
+        gl.grouping_lab_scan("prefetch", *args)
+    # 12,000 slots x 20 B of staged schedule pass a block's 227 KB
+    wide = list(args)
+    for i in (6, 7, 8, 9):
+        wide[i] = wide[i][:, :1].repeat(1, 12000).contiguous()
+    gl.grouping_lab_scan("fill", *wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        gl.grouping_lab_scan("staged", *wide)
+
+
+def _source(name):
+    with open(os.path.join(kbuild.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def test_lab_variant_table_matches_the_sources():
+    """ops/cuda/grouping_lab.py::VARIANTS against the switch of
+    csrc/grouping_lab.cu, and ENGINE_VARIANT against the instantiation of
+    csrc/grouping_scan.cu."""
+    cases = {int(m[1]): m.groups()[1:] for m in re.finditer(
+        r"LAB_CASE\((\d), (true|false), (true|false), (true|false), "
+        r"(true|false), (true|false)\)\s*// (\w+)",
+        _source("grouping_lab.cu"))}
+    table = {v[5]: k for k, v in cases.items()}
+    two_pass = re.search(r"case (\d):\s*// (\w+): the two-pass kernel",
+                         _source("grouping_lab.cu"))
+    table[two_pass[2]] = int(two_pass[1])
+    assert table == gl.VARIANTS
+    assert cases[gl.VARIANTS["direct"]][:5] == ("false",) * 5
+    engine = re.search(
+        r"launch</\*FILL=\*/(\w+), /\*STREAM=\*/(\w+), /\*SKIP=\*/(\w+),"
+        r"\s*/\*STAGE=\*/(\w+), /\*BULK=\*/(\w+)>",
+        _source("grouping_scan.cu"))
+    assert engine.groups() == cases[gl.VARIANTS[gl.ENGINE_VARIANT]][:5]
+    assert '#include "scan_common.cuh"' in _source("adc_scan.cu")
+    assert "fill_inf" in _source("scan_common.cuh")
+
+
+def test_library_hash_covers_headers(tmp_path, monkeypatch):
+    """An edit of any header under csrc/ renames every library, so a stale
+    build is never loaded; the build directory stays build/torch_kernels."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kbuild.CSRC_DIR, csrc)
+    monkeypatch.setattr(kbuild, "CSRC_DIR", str(csrc))
+    names = ["adc_scan", "grouping_scan", "grouping_lab", "scan_lab"]
+    before = [kbuild.library_path(n) for n in names]
+    assert before == [kbuild.library_path(n) for n in names]
+    with open(csrc / "scan_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = [kbuild.library_path(n) for n in names]
+    assert all(a != b for a, b in zip(after, before))
+    with open(csrc / "grouping_scan.cu", "a") as f:
+        f.write("// edited\n")
+    again = [kbuild.library_path(n) for n in names]
+    assert again[1] != after[1] and again[0] == after[0]
+    for path in again:
+        assert os.path.dirname(path) == kbuild.BUILD_DIR
+        assert kbuild.BUILD_DIR.endswith(os.path.join("build",
+                                                      "torch_kernels"))
+
+
+def test_grouping_scan_bound_counts_kept_rows_once():
+    """Against a count lane by lane: bytes = tables + schedule + one subc
+    byte per touched row + M + 1 bytes per row kept by some query + the
+    output; operations = (M + 2) per kept lane."""
+    args = _edge_args(M=8, gran=16)
+    gran = args[-1]
+    out = tg.grouping_scan_slots_plain(*args)
+    b = grouping_scan_bound(args[:-1], out, gran)
+    lut, ntab, t2, codes, _, _, start, length = [a.numpy() for a in args[:8]]
+    touched, kept, n_kept = set(), set(), 0
+    o = out.numpy()
+    for q in range(start.shape[0]):
+        for s in range(start.shape[1]):
+            for l in range(length[q, s]):
+                r = int(start[q, s]) + l
+                touched.add(r)
+                if np.isfinite(o[q, s * gran + l]):
+                    kept.add(r)
+                    n_kept += 1
+    assert b["kept_lanes"] == n_kept and 0 < n_kept < int(length.sum())
+    assert b["filled_lanes"] == int(length.sum())
+    nbytes = (lut.size * 4 + 256 * 4 + t2.size * 4 + start.size * 20
+              + len(touched) + len(kept) * 9 + o.size * 4)
+    assert b["bound_by"] == "bytes" and b["lookup_ms"] is None
+    assert b["bound_ms"] == pytest.approx(nbytes / 3.35e9)
+
+
 @pytest.mark.parametrize("shape", [(), (5,)], ids=["1d", "2d"])
 def test_segment_sum_matches_numpy(shape):
     """Against float64 np.add.at, empty segments included (0)."""
@@ -196,6 +351,67 @@ def test_kernel_opts_into_large_shared_memory_on_card():
     assert torch.equal(torch.isinf(out), torch.isinf(ref))
     fin = torch.isfinite(ref)
     torch.testing.assert_close(out[fin], ref[fin], rtol=RTOL, atol=ATOL)
+
+
+def _kernels():
+    """The engine's kernel and every lab variant, as fn(*args)."""
+    out = {"engine": tg.grouping_scan_slots}
+    for name in gl.VARIANTS:
+        out[name] = (lambda *a, name=name: gl.grouping_lab_scan(name, *a))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 16])
+@pytest.mark.parametrize("gran", [256, 1024, 250])
+@pytest.mark.parametrize("kernel", ["engine"] + sorted(gl.VARIANTS))
+def test_kernel_padding_paths_equal_plain_on_card(kernel, gran, M):
+    """Slots of 1, 3 and gran - 1 codes, runs of empty slots, an empty
+    query: every kernel torch.equal to the plain version. The engine's slot
+    widths are 256 and 1024, so its output rows (nslots * gran floats) are
+    always whole 16-byte stores; gran = 250 makes rows and slot tails that
+    are not, which takes the fills' one-float path."""
+    _need_card()
+    args = _edge_args("cuda", M=M, gran=gran)
+    out = _kernels()[kernel](*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tg.grouping_scan_slots_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["engine"] + sorted(gl.VARIANTS))
+def test_kernel_whole_batch_pruned_is_all_inf_on_card(kernel):
+    _need_card()
+    args = _edge_args("cuda", pruned=True)
+    out = _kernels()[kernel](*args)
+    torch.cuda.synchronize()
+    assert torch.isinf(out).all() and (out > 0).all()
+
+
+@pytest.mark.cuda
+def test_lab_counts_its_launches_on_card():
+    _need_card()
+    args = _edge_args("cuda")
+    gl.reset_launches()
+    before = tg.grouping_scan_slots.launches
+    for name in gl.VARIANTS:
+        gl.grouping_lab_scan(name, *args)
+    torch.cuda.synchronize()
+    assert gl.LAUNCHES == {name: 1 for name in gl.VARIANTS}
+    assert tg.grouping_scan_slots.launches == before
+
+
+@pytest.mark.cuda
+def test_staged_variant_opts_into_large_shared_memory_on_card():
+    """2,000 slots of staged schedule (40 KB) beside 25 KB of tables pass
+    the 48 KB a launch gets without opting in."""
+    _need_card()
+    args = _edge_args("cuda", gran=32)
+    for i in (6, 7, 8, 9):
+        args[i] = args[i].repeat(1, 223)[:, :2000].contiguous()
+    out = gl.grouping_lab_scan("staged", *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tg.grouping_scan_slots_plain(*args))
 
 
 @pytest.mark.cuda

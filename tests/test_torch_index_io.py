@@ -316,9 +316,29 @@ def test_len_series_and_variables_match_jax(tmp_path):
 
 
 def test_grouping_index_file_format_is_not_ported(tmp_path):
-    g = IVFADCGroupingIndex(IndexConfig(d=32, nc=8, code_size=8, nsubc=4),
-                            "cpu")
-    with pytest.raises(NotImplementedError):
+    """It is ported now (tests/test_torch_grouping_io.py holds it against
+    the JAX package's): a grouping index writes its own ``.index`` layout,
+    [u64 d | u64 nc | u64 nsubc | ...], and reads it back; an unbuilt index
+    has nothing to write, and IVFADC's reader refuses the file."""
+    cfg = IndexConfig(d=32, nc=8, code_size=8, nsubc=4)
+    g = IVFADCGroupingIndex(cfg, "cpu")
+    with pytest.raises(RuntimeError):
         g.write(str(tmp_path / "g.index"))
-    with pytest.raises(NotImplementedError):
-        g.read(str(tmp_path / "g.index"))
+    rng = np.random.RandomState(8)
+    base = rng.randn(600, 32).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    g.train_centroids(gen, base, niter=4)
+    g.compute_neighbor_centroids()
+    g.train_pq(gen, base, pq_niter=3)
+    g.add(base)
+    g.finalize()
+    path = str(tmp_path / "g.index")
+    g.write(path)
+    assert np.frombuffer(_bytes(path)[:24], "<u8").tolist() == [32, 8, 4]
+    r = IVFADCGroupingIndex(cfg, "cpu")
+    r.read(path)
+    _same_store(r.store, g.store)
+    assert torch.equal(r.alphas, g.alphas)
+    assert torch.equal(r.nn_centroid_idxs, g.nn_centroid_idxs)
+    with pytest.raises(ValueError):
+        IVFADCIndex(IndexConfig(d=32, nc=8, code_size=8), "cpu").read(path)

@@ -32,6 +32,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(d=32, nc=64, code_size=8)
 PARAMS = [dict(k=10, nprobe=8, max_codes=0),
           dict(k=10, nprobe=16, max_codes=300)]
+TINY = ["-synthetic", "0", "-device", "cpu", "-d", "32", "-nc", "64",
+        "-code_size", "8", "-nb", "6000", "-nt", "3000", "-nq", "100",
+        "-nprobe", "8", "-max_codes", "1000", "-k", "10"]
 
 
 @pytest.fixture(scope="module")
@@ -238,14 +241,24 @@ def test_port_trained_index_quality(built):
 
 
 @pytest.mark.parametrize("bad", ["engine", "layout", "coarse", "opq"])
-def test_unported_options_raise(built, bad):
+def test_unported_options_raise(built, bad, tmp_path):
     j, _, queries = built
     if bad == "opq":
-        # OPQ itself is ported; its rotation's file format is not, and an
-        # OPQ index without a trained rotation refuses to encode.
-        with pytest.raises(NotImplementedError):
-            ivfadc_eval.main(["-synthetic", "0", "-device", "cpu",
-                              "-do_opq", "on", "-path_opq_matrix", "x.opq"])
+        # OPQ and its rotation's file are ported: a driver run with
+        # -path_opq_matrix trains, writes the three quantizer files and a
+        # second run loads them. An OPQ index without a trained rotation
+        # still refuses to encode.
+        argv = TINY + ["-do_opq", "on", "-path_pq", str(tmp_path / "x.pq"),
+                       "-path_norm_pq", str(tmp_path / "x.norm_pq"),
+                       "-path_opq_matrix", str(tmp_path / "x.opq")]
+        r1 = ivfadc_eval.main(argv)
+        assert sorted(os.listdir(tmp_path)) == ["x.norm_pq", "x.opq", "x.pq"]
+        r2 = ivfadc_eval.main(argv)
+        assert (r1["stages"]["how"]["pq"], r2["stages"]["how"]["pq"]) == (
+            "trained", "loaded")
+        R = r2["index"].opq_R
+        torch.testing.assert_close(R @ R.T, torch.eye(32), rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(r2["labels"], r1["labels"])
         t = IVFADCIndex(IndexConfig(do_opq=True, **CFG), "cpu")
         t.set_centroids(np.asarray(j.centroids))
         with pytest.raises(RuntimeError):
@@ -281,17 +294,32 @@ def test_driver_cpu_runs_and_prints_recall():
     ["-device", "cpu"],                                    # no -synthetic
     ["-synthetic", "0", "-device", "cpu", "-path_pq", "x.pq"],
 ])
-def test_driver_refuses_unported_flags(argv, monkeypatch):
+def test_driver_refuses_unported_flags(argv, monkeypatch, tmp_path):
+    """What the driver still refuses is a CUDA device without a card. A
+    run that names neither -synthetic nor -path_base takes the synthetic
+    corpus of seed 0, and the -path_* flags are served: the quantizers are
+    written when both of their paths are given, and only then."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    exc = RuntimeError if "-device" not in argv else NotImplementedError
-    with pytest.raises(exc):
-        ivfadc_eval.main(argv)
+    monkeypatch.chdir(tmp_path)
+    if "-device" not in argv:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ivfadc_eval.main(argv)
+        return
+    res = ivfadc_eval.main(argv + TINY[4:])
+    ref = ivfadc_eval.main(TINY)
+    np.testing.assert_array_equal(res["labels"], ref["labels"])
+    assert os.listdir(tmp_path) == []     # -path_pq without -path_norm_pq
+    if "-path_pq" in argv:
+        ivfadc_eval.main(argv + TINY[4:] + ["-path_norm_pq", "x.norm_pq"])
+        assert sorted(os.listdir(tmp_path)) == ["x.norm_pq", "x.pq"]
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, ivfhnsw_tpu_torch, ivfhnsw_tpu_torch.drivers."
             "ivfadc_eval, ivfhnsw_tpu_torch.drivers.grouping_eval, "
             "ivfhnsw_tpu_torch.drivers.enn, "
+            "ivfhnsw_tpu_torch.drivers.vector_add, "
+            "ivfhnsw_tpu_torch.drivers.disk_rerank, "
             "ivfhnsw_tpu_torch.ops.cuda.build, ivfhnsw_tpu_torch.ops.opq; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'ivfhnsw_tpu' not in sys.modules")
