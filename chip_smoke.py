@@ -93,7 +93,7 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    before and required to grow; each read-back index rewrites its .index
    byte-identically; drivers/disk_rerank.py over the grouping files against
    base.fvecs (R@10 no lower than the ANN search's); drivers/vector_add.py
-   -synthetic 0 -segments 4 at the flagship sizes over the grouping
+   -segments 4 at the flagship sizes over base.fvecs and the grouping
    quantizer files (four index_NN.index files, ntotal 0.5M / 1M / 1.5M /
    2M, the last segment's recall beside the one-shot build's); [files]
    lines with every stage's seconds cold and warm and the files' sizes.
@@ -118,9 +118,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -259,6 +262,19 @@ def timed(stages: dict, name: str, fn, device):
     return r
 
 
+class PhaseClock:
+    """Host seconds of each phase of :func:`run`, from one mark to the
+    next."""
+
+    def __init__(self):
+        self.seconds, self._t = {}, time.perf_counter()
+
+    def mark(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = round(now - self._t, 2)
+        self._t = now
+
+
 class SmokeFiles:
     """The corpus and artifact files of the file-backed phases in one
     directory, and the drivers' command lines over them. The two indexes
@@ -304,15 +320,19 @@ class SmokeFiles:
         return [str(x) for x in self.sizes() + extra + self.flags(
             {**self.CORPUS, **self.SHARED, **self.OWN[which]})]
 
-    def vector_add_argv(self, out_dir: str, segments: int) -> list:
-        """vector_add over the synthetic corpus, the coarse centroids and
-        the flagship's quantizer files; its indexes go to ``out_dir``."""
+    def vector_add_argv(self, out_dir: str, segments: int = 0,
+                        segment_dir: str = "") -> list:
+        """vector_add over the corpus files, the coarse centroids and the
+        flagship's quantizer files: the base split into ``segments``, or
+        the segments in ``segment_dir``; its indexes go to ``out_dir``."""
         quant = {k: v for k, v in {**self.SHARED,
                                    **self.OWN["grouping"]}.items()
                  if k not in ("path_precomputed_idxs", "path_index")}
+        split = (["-segment_dir", segment_dir] if segment_dir
+                 else ["-segments", segments])
         return [str(x) for x in
-                ["-synthetic", 0, "-segments", segments] + self.sizes()
-                + self.flagship() + self.flags(quant)
+                split + self.sizes() + self.flagship()
+                + self.flags({**self.CORPUS, **quant})
                 + ["-path_index", os.path.join(out_dir, "index")]]
 
     def write_corpus(self, ds) -> int:
@@ -347,10 +367,10 @@ def run_driver(main, argv: list, how: dict, what: str) -> dict:
     return res
 
 
-def run_files(device, files: SmokeFiles, ds, first: dict) -> None:
+def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
     """Phase 12 after run 1 of both drivers (``first``: their results by
     index): run 2 from the files, the byte-identical rewrite, disk_rerank
-    and vector_add."""
+    and vector_add; returns vector_add's per-segment records."""
     import filecmp
 
     from ivfhnsw_tpu_torch.drivers import (disk_rerank, grouping_eval,
@@ -424,13 +444,14 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> None:
         raise AssertionError(f"vector_add: files {names}, ntotal "
                              f"{[r['ntotal'] for r in res]}")
     last = res[-1]["recalls"]
-    print(f"[files] vector_add -synthetic 0 -segments 4: ntotal "
+    print(f"[files] vector_add -segments 4 over base.fvecs: ntotal "
           f"{[r['ntotal'] for r in res]}, R@10 per segment "
           f"{[round(r['recalls'][10], 4) for r in res]}, after the last "
           f"segment R@1 {last[1]:.4f} R@10 {last[10]:.4f} (one-shot build "
           f"{ann[1]:.4f} / {ann[10]:.4f}), index files "
           f"{[os.path.getsize(os.path.join(va_dir, n)) for n in names]} B, "
           f"command {wall:.2f} s", flush=True)
+    return res
 
 
 def main() -> int:
@@ -486,7 +507,7 @@ def main() -> int:
 
 
 def run(device, p: dict, files: SmokeFiles) -> list:
-    """Phases 3-12 on ``device`` at the sizes ``p`` over the files
+    """Phases 3-16 on ``device`` at the sizes ``p`` over the files
     ``files``; returns the kernel result records."""
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
@@ -498,8 +519,10 @@ def run(device, p: dict, files: SmokeFiles) -> list:
                                                 SearchParams)
     from ivfhnsw_tpu_torch.utils.roofline import scan_bound
 
+    clock = PhaseClock()
     # 3. kernels against plain on synthetic slots
     phase_kernels_vs_plain(device, p["nb"])
+    clock.mark("3")
 
     # 4. main path
     cfg = RunConfig()
@@ -563,6 +586,8 @@ def run(device, p: dict, files: SmokeFiles) -> list:
               f"{sub} queries", flush=True)
     print("[main] stages_s " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
+
+    clock.mark("4")
 
     # 5. on the main path's own schedule for one default-size search batch
     # (8192 queries): kernel against
@@ -639,30 +664,56 @@ def run(device, p: dict, files: SmokeFiles) -> list:
               f"s {[round(x, 4) for x in w]} -> {1e6 * min(w) / ds.nq:.3f} "
               f"us/query, {ds.nq / min(w):.0f} QPS (best of 2)", flush=True)
 
+    del args, dists         # they hold the store's device tensors
+    clock.mark("5")
+
     # 6. the two-phase top-k path over the same index
     kernels += run_two_phase(device, cfg, ds, index, results)
+    clock.mark("6")
 
     # 6b. the scan kernels over stores that differ only in their banks
     from ivfhnsw_tpu_torch.tools import bank_probe
     bank_probe.run(index, ds.queries, params, device, batch=SEARCH_BATCH,
                    log=lambda m: print(m, flush=True))
+    clock.mark("6b")
 
     # 7. determinism of k-means at the primary point
     phase_determinism(ds, p, device)
+    clock.mark("7")
 
     # 8-9. the grouping main path at the flagship point, then its layers
     gkernels, gi, gresults, first["grouping"] = run_grouping(
         device, p, cfg, ds, files)
     kernels += gkernels
+    clock.mark("8-9")
 
     # 10. the query surface
     run_surface(device, cfg, ds, index, gi, gresults)
+    clock.mark("10")
 
     # 11. the scan lab, through the index read back from disk
     kernels += run_lab(device, cfg, ds, index, results)
+    clock.mark("11")
 
     # 12. run 2 of both drivers from the files, disk_rerank, vector_add
-    run_files(device, files, ds, first)
+    va = run_files(device, files, ds, first)
+    clock.mark("12")
+
+    # 13-16. trace and counters; ORCV; device build, checkpoint and
+    # vector_split; the SIFT-like corpus
+    gcfg = flagship_cfg(cfg)
+    pl = PhaseLaunches()
+    run_trace(device, cfg, gcfg, ds, index, gi, files, pl)
+    clock.mark("13")
+    run_orcv(device, cfg, ds, index, gi, files, first, pl)
+    clock.mark("14")
+    run_device_build(device, cfg, gcfg, ds, index, gi, files, results,
+                     gresults, va, pl)
+    clock.mark("15")
+    run_siftlike(device, p, cfg, gcfg, results, gresults, kernels, pl)
+    clock.mark("16")
+    pl.attach(kernels)
+    print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
 
 
@@ -984,6 +1035,16 @@ def phase_determinism(ds, p: dict, device) -> None:
           f"{runs[0][1]:.3f} s / {runs[1][1]:.3f} s", flush=True)
 
 
+def flagship_cfg(cfg):
+    """The run configuration ``cfg`` at the flagship point."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, index=dataclasses.replace(cfg.index, nsubc=FLAGSHIP["nsubc"],
+                                       do_opq=FLAGSHIP["do_opq"]),
+        search=dataclasses.replace(cfg.search,
+                                   do_pruning=FLAGSHIP["do_pruning"]))
+
+
 def run_grouping(device, p: dict, cfg, ds, files: SmokeFiles):
     """Phases 8-9 at the flagship point over phase 4's files; returns the
     grouping kernels' result records, the flagship index, its search
@@ -1000,11 +1061,7 @@ def run_grouping(device, p: dict, cfg, ds, files: SmokeFiles):
     from ivfhnsw_tpu_torch.tools import grouping_probe
     from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
 
-    gcfg = dataclasses.replace(
-        cfg, index=dataclasses.replace(cfg.index, nsubc=FLAGSHIP["nsubc"],
-                                       do_opq=FLAGSHIP["do_opq"]),
-        search=dataclasses.replace(cfg.search,
-                                   do_pruning=FLAGSHIP["do_pruning"]))
+    gcfg = flagship_cfg(cfg)
 
     # 8. the main path: the grouping driver's command over the files, with
     # the coarse centroids and assignments that phase 4's run wrote
@@ -1164,6 +1221,728 @@ def grouping_sched(gi, probes, term1, scan, ssz, params, nslots: int,
     return tg.grouping_schedule(probes, term1, eff, ssz.sum(dim=2),
                                 gi._grouped().group_offsets_t,
                                 params.max_codes, nslots, gran)
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-16: the rest of the single-index surface
+# ---------------------------------------------------------------------------
+
+KERNEL_OF = {"ivfadc": "adc_scan_slots", "flagship": "grouping_scan_slots"}
+
+
+def scan_wrappers() -> dict:
+    """The production scan kernels' wrappers, by name."""
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    return {"adc_scan_slots": tk.adc_scan_slots,
+            "adc_scan_slots_min": tk.adc_scan_slots_min,
+            "grouping_scan_slots": tg.grouping_scan_slots}
+
+
+class PhaseLaunches:
+    """The production scan kernels' launches on the main paths of phases
+    13-16, by kernel record name and phase."""
+
+    def __init__(self):
+        self.by_kernel: dict = {}
+
+    def counted(self, phase: str, gran, need, fn, what: str):
+        """fn() as one main path: every production scan kernel's launch
+        count set to 0 just before it and read just after; each kernel
+        named in ``need`` must have launched. With a slot width ``gran``
+        the counts are filed under ``phase`` (None: the path changes width
+        as it goes, so they are only checked)."""
+        wrappers = scan_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        r = fn()
+        if gran is not None:
+            for name, w in wrappers.items():
+                if w.launches:
+                    per = self.by_kernel.setdefault(f"{name}_gran{gran}", {})
+                    per[phase] = per.get(phase, 0) + w.launches
+        idle = [n for n in need if wrappers[n].launches <= 0]
+        if idle:
+            raise AssertionError(f"{what}: {idle} never launched")
+        return r
+
+    def attach(self, kernels: list) -> None:
+        """Each production kernel record's launches over every main path:
+        the phase that first drove it (4, 6 or 8) and phases 13-16, with
+        the count per phase beside the total."""
+        origin = {"adc_scan_slots": "4", "adc_scan_slots_min": "6",
+                  "grouping_scan_slots": "8"}
+        for rec in kernels:
+            base = rec["name"].rsplit("_gran", 1)[0]
+            if base in origin:
+                by = {origin[base]: rec["launches"],
+                      **self.by_kernel.get(rec["name"], {})}
+                rec["launches_by_phase"] = by
+                rec["launches"] = sum(by.values())
+
+
+def mem_reset(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_gib(device):
+    """Peak device memory allocated since :func:`mem_reset`, GiB (None off
+    the card)."""
+    import torch
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def in_dir(path: str, fn):
+    """fn() with ``path`` as the working directory (the ORCV drivers write
+    their logs there)."""
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
+def log_blocks(path: str) -> int:
+    with open(path) as f:
+        return sum(1 for line in f if line.startswith("query "))
+
+
+def run_trace(device, cfg, gcfg, ds, index, gi, files: SmokeFiles,
+              pl: PhaseLaunches) -> None:
+    """Phase 13: search(trace=True) and the stats counters of both indexes
+    against their fused engines; orca_debug over phase 12's files; one
+    search batch under utils/profiling.py::device_trace."""
+    import tempfile
+
+    import torch
+    from ivfhnsw_tpu_torch.drivers import orca_debug
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    from ivfhnsw_tpu_torch.utils.profiling import TRACE_FILE, device_trace
+
+    nq = ds.nq
+    q_all = torch.tensor(ds.queries, device=device)
+    for name, idx, prm in (("ivfadc", index, cfg.search),
+                           ("flagship", gi, gcfg.search)):
+        idx.engine, idx.scan_layout, idx.scan_topk = "fused", "auto", "auto"
+        gran, P = idx.scan_gran(), min(prm.nprobe, idx.nc)
+        d1, l1 = pl.counted("13", gran, [KERNEL_OF[name]],
+                            lambda: idx.search(ds.queries, prm),
+                            f"{name} fused search")
+        idx.stats = {"queries": 0, "codes_scanned": 0}
+        mem_reset(device)
+        t = time.perf_counter()
+        d2, l2, tr = idx.search(ds.queries, prm, trace=True)
+        secs = time.perf_counter() - t
+        peak = peak_gib(device)
+        for key, dt, shape in (("probes", np.int32, (nq, P)),
+                               ("qc_dists", np.float32, (nq, P)),
+                               ("included", np.bool_, (nq, P)),
+                               ("n_scanned", np.int32, (nq,))):
+            if tr[key].dtype != dt or tr[key].shape != shape:
+                raise AssertionError(f"{name} trace {key}: {tr[key].dtype} "
+                                     f"{tr[key].shape}")
+        if (np.diff(tr["qc_dists"], axis=1) < 0).any():
+            raise AssertionError(f"{name} trace: probes not ascending")
+        if not tr["included"][:, 0].all():
+            raise AssertionError(f"{name} trace: a nearest probe excluded")
+        assert_same(d1, l1, d2, l2, f"{name} traced vs fused")
+        swapped = int((l1 != l2).any(axis=1).sum())
+        nsc = tr["n_scanned"].astype(np.int64)
+        want = {"queries": nq, "codes_scanned": int(nsc.sum())}
+        if idx.stats != want:
+            raise AssertionError(f"{name} stats {idx.stats}, expected {want}")
+        # n_scanned against the fused schedule, batch by batch: IVFADC
+        # scans every code of its schedule; the flagship's schedule holds
+        # whole groups of the budgeted probes and its kernel writes +inf on
+        # pruned subgroups, so n_scanned is the count of finite lanes.
+        held = []
+        for off in range(0, nq, SEARCH_BATCH):
+            q = q_all[off:off + SEARCH_BATCH]
+            if name == "ivfadc":
+                length = idx.scan_inputs(q, prm)[5]
+                sched = length.sum(dim=1)
+                scanned = sched
+            else:
+                args = idx.grouping_scan_inputs(q, prm)
+                sched = args[7].sum(dim=1)
+                scanned = torch.isfinite(
+                    tg.grouping_scan_slots(*args, gran)).sum(dim=1)
+            held.append((sched.cpu().numpy(), scanned.cpu().numpy()))
+        sched = np.concatenate([h[0] for h in held]).astype(np.int64)
+        scanned = np.concatenate([h[1] for h in held]).astype(np.int64)
+        if not np.array_equal(nsc, scanned) or (sched < nsc).any():
+            raise AssertionError(
+                f"{name}: n_scanned differs from the fused schedule on "
+                f"{int((nsc != scanned).sum())} queries")
+        relation = ("= the schedule's lengths" if name == "ivfadc" else
+                    f"= its finite lanes (pruned share "
+                    f"{1 - nsc.sum() / max(sched.sum(), 1):.3f} of the "
+                    "schedule's lengths)")
+        print(f"[trace] {name}: search(trace=True) of {nq} queries (torch "
+              f"engine) in {secs:.3f} s, peak device memory "
+              f"{peak if peak is None else round(peak, 3)} GiB; labels equal "
+              f"to the fused engine's (gran {gran}) on {nq - swapped} "
+              f"queries; on {swapped} they differ only where the distances "
+              f"agree within rtol {RTOL} / atol {ATOL} (D4, D5); "
+              f"n_scanned per query {relation} on every query, mean "
+              f"{nsc.mean():.1f} max {nsc.max()}; included probes mean "
+              f"{tr['included'].sum(1).mean():.2f} of {P}; stats "
+              + json.dumps(idx.stats), flush=True)
+        before = dict(idx.stats)
+        idx.search(ds.queries[:256], prm)
+        if idx.stats != {"queries": before["queries"] + 256,
+                         "codes_scanned": before["codes_scanned"]}:
+            raise AssertionError(f"{name}: stats after an untraced search "
+                                 f"{idx.stats}")
+
+    # orca_debug over the IVFADC files, in a working directory of its own
+    work = tempfile.mkdtemp(prefix="orca_debug_", dir=files.root)
+    mem_reset(device)
+    t = time.perf_counter()
+    res = pl.counted("13", index.scan_gran(), [],
+                     lambda: in_dir(work, lambda: orca_debug.main(
+                         files.argv("ivfadc"))), "orca_debug")
+    secs = time.perf_counter() - t
+    peak = peak_gib(device)
+    nblocks = {log: log_blocks(os.path.join(work, log))
+               for log in (orca_debug.HIT_LOG, orca_debug.MISS_LOG)}
+    if sum(nblocks.values()) != nq:
+        raise AssertionError(f"orca_debug logs hold {nblocks} query blocks, "
+                             f"expected {nq} in all")
+    if res is None or res["query"] < 0:
+        raise AssertionError(f"orca_debug found no miss: {res}")
+    print(f"[trace] orca_debug over the IVFADC files: {secs:.2f} s, peak "
+          f"device memory {peak if peak is None else round(peak, 3)} GiB; "
+          f"first miss {json.dumps(res)}; log blocks "
+          + json.dumps(nblocks), flush=True)
+
+    # one search batch under device_trace
+    index.engine, index.scan_layout = "fused", "auto"
+    gran = index.scan_gran()
+    index.search(ds.queries[:256], cfg.search)                # warm shapes
+    with tempfile.TemporaryDirectory(dir=files.root) as tdir:
+        with device_trace(tdir, device) as prof:
+            pl.counted("13", gran, ["adc_scan_slots"],
+                       lambda: index.search(ds.queries[:SEARCH_BATCH],
+                                            cfg.search), "traced batch")
+        size = os.path.getsize(os.path.join(tdir, TRACE_FILE))
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")),
+                  key=lambda r: -r[1])
+    if device.type == "cuda" and not any("adc_scan" in r[0] for r in rows):
+        raise AssertionError("device_trace: no scan kernel among the device "
+                             f"events {[r[0] for r in rows[:10]]}")
+    total = sum(r[1] for r in rows)
+    print(f"[trace] device_trace of one {min(SEARCH_BATCH, nq)}-query batch "
+          f"(IVFADC, gran {gran}): {TRACE_FILE} {size} B; device time "
+          f"{total / 1e3:.4f} ms over {len(rows)} kernels; top "
+          + json.dumps([[r[0][:60], round(r[1] / 1e3, 4), r[2]]
+                        for r in rows[:8]]), flush=True)
+
+
+def run_orcv(device, cfg, ds, index, gi, files: SmokeFiles, first: dict,
+             pl: PhaseLaunches) -> None:
+    """Phase 14: write2 of both indexes; load_home_dir of the IVFADC dir
+    (equal store, equal search); mkindex and ivfadc_eval -orca_obuf over
+    phase 12's files."""
+    import filecmp
+    import tempfile
+
+    import torch
+    from ivfhnsw_tpu_torch.drivers import common as C
+    from ivfhnsw_tpu_torch.drivers import ivfadc_eval, mkindex
+    from ivfhnsw_tpu_torch.utils.orcv import load_home_dir
+
+    homes = {}
+    for name, idx in (("ivfadc", index), ("flagship", gi)):
+        home = files.path(f"orcv_{name}")
+        t = time.perf_counter()
+        idx.write2(home, n_vecs=idx.store.ntotal)
+        secs = time.perf_counter() - t
+        sizes = {f: os.path.getsize(os.path.join(home, f))
+                 for f in sorted(os.listdir(home))}
+        homes[name] = home
+        print(f"[orcv] {name} write2 in {secs:.3f} s: "
+              f"{sum(sizes.values())} B, " + json.dumps(sizes), flush=True)
+
+    own = files.OWN["ivfadc"]
+    t = time.perf_counter()
+    r, hdr = load_home_dir(homes["ivfadc"], device,
+                           centroids_path=files.path(
+                               files.SHARED["path_centroids"]))
+    r.load_quantizers(files.path(own["path_pq"]),
+                      files.path(own["path_norm_pq"]))
+    C._sync(device)
+    t_load = time.perf_counter() - t
+    st, rs = index.store, r.store
+    for what, a, b in (("codes", st.codes_t, rs.codes_t),
+                       ("norm codes", st.norm_codes_t, rs.norm_codes_t),
+                       ("list offsets", st.list_offsets_t, rs.list_offsets_t),
+                       ("centroid norms", index.centroid_norms,
+                        r.centroid_norms)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"load_home_dir: {what} differ")
+    params = cfg.search
+    index.engine = r.engine = "fused"
+    index.scan_layout = r.scan_layout = "auto"
+    index.scan_topk = r.scan_topk = "auto"
+    d1, l1 = index.search(ds.queries, params)
+    d2, l2 = pl.counted("14", r.scan_gran(), ["adc_scan_slots"],
+                        lambda: r.search(ds.queries, params),
+                        "search over the loaded home dir")
+    mapped = np.where(l2 >= 0, st.ids[np.maximum(l2, 0)], -1)
+    if not np.array_equal(d2, d1) or not np.array_equal(mapped, l1):
+        raise AssertionError("load_home_dir: the loaded index searches "
+                             "differently")
+    rg, hdr_g = load_home_dir(homes["flagship"], device)
+    first_nc = int(gi.store.list_offsets[gi.nc])
+    if (hdr_g.nc != gi.nc or hdr_g.n != gi.store.ntotal
+            or not np.array_equal(rg.store.codes, gi.store.codes[:first_nc])
+            or not np.array_equal(rg.store.list_offsets,
+                                  gi.store.list_offsets[:gi.nc + 1])):
+        raise AssertionError("load_home_dir of the flagship's dir: not its "
+                             "first nc subgroup lists")
+    print(f"[orcv] load_home_dir of the IVFADC dir (+ centroids and "
+          f"quantizer files) in {t_load:.3f} s: codes, norm codes, offsets, "
+          f"centroid norms torch.equal to the store's; search of {ds.nq} "
+          f"queries: distances equal, labels equal through store.ids; the "
+          f"flagship's dir reads back as its first {gi.nc} of "
+          f"{gi.nc * gi.nsubc} subgroup lists ({hdr_g.nc} in the header, "
+          f"the write2 quirk both packages share)", flush=True)
+
+    # mkindex over the flagship's files: loads every artifact
+    work = tempfile.mkdtemp(prefix="mkindex_", dir=files.root)
+    out = os.path.join(work, "orcv")
+    t = time.perf_counter()
+    mk = in_dir(work, lambda: mkindex.main(files.argv("grouping")
+                                           + ["-orcv_home", out]))
+    secs = time.perf_counter() - t
+    if mk["stages"]["how"] != WARM:
+        raise AssertionError(f"mkindex: stages {mk['stages']['how']}")
+    names = sorted(os.listdir(homes["flagship"]))
+    if sorted(os.listdir(out)) != names or not all(
+            filecmp.cmp(os.path.join(out, n),
+                        os.path.join(homes["flagship"], n), shallow=False)
+            for n in names):
+        raise AssertionError("mkindex: its ORCV dir differs from the "
+                             "flagship's write2")
+    with open(os.path.join(work, mkindex.LOG)) as f:
+        nlines = sum(1 for _ in f)
+    if nlines != gi.nc * gi.nsubc:
+        raise AssertionError(f"mkindex: {mkindex.LOG} has {nlines} lines")
+    print(f"[orcv] mkindex over the flagship's files: {secs:.2f} s, every "
+          f"artifact loaded, {mkindex.LOG} {nlines} lines, ORCV dir "
+          f"byte-identical to the flagship's write2", flush=True)
+
+    # ivfadc_eval -orca_obuf over the IVFADC files
+    t = time.perf_counter()
+    argv = files.argv("ivfadc") + ["-orca_obuf", "1"]
+    ob = pl.counted("14", index.scan_gran(), ["adc_scan_slots"],
+                    lambda: run_driver(ivfadc_eval.main, argv, WARM,
+                                       "ivfadc_eval -orca_obuf"),
+                    "ivfadc_eval -orca_obuf")
+    secs = time.perf_counter() - t
+    rec = np.frombuffer(ob["obuf"], dtype=[
+        ("eid", "<u8"), ("code", "u1", (st.code_m,)), ("norm", "u1")])
+    n = rec.shape[0]
+    row = np.empty(st.ntotal, np.int64)
+    row[st.ids] = np.arange(st.ntotal)
+    if (n != min(C.ASSIGN_BATCH, ds.nb)
+            or not np.array_equal(rec["eid"], np.arange(n))
+            or not np.array_equal(rec["code"], st.codes[row[:n]])
+            or not np.array_equal(rec["norm"], st.norm_codes[row[:n]])):
+        raise AssertionError("-orca_obuf: the buffer's records differ from "
+                             "add_batch's codes for that batch")
+    if ob["index"].store.ntotal != ds.nb or not np.array_equal(
+            ob["labels"], first["ivfadc"]["labels"]):
+        raise AssertionError("-orca_obuf: the index or its labels differ "
+                             "from a plain run's")
+    print(f"[orcv] ivfadc_eval -orca_obuf over the IVFADC files: {secs:.2f} "
+          f"s; add_batch2 buffer {len(ob['obuf'])} B for {n} vectors, codes "
+          f"and norm codes equal to the store's for ids 0..{n - 1}; index "
+          f"{ob['index'].store.ntotal} codes (the builder was emptied before "
+          f"the read); labels equal to phase 12's on all {ds.nq} queries",
+          flush=True)
+
+
+def same_store(a, b, what: str) -> None:
+    import torch
+    for name in ("codes_t", "ids_t", "norm_codes_t", "list_offsets_t"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: store {name} differs")
+
+
+def run_device_build(device, cfg, gcfg, ds, index, gi, files: SmokeFiles,
+                     results: dict, gresults: dict, va: list,
+                     pl: PhaseLaunches) -> None:
+    """Phase 15: the device-resident build of both indexes from the base
+    uploaded once; release_device; save_index / load_index; vector_split
+    of base.fvecs, then vector_add -segment_dir."""
+    import filecmp
+
+    import torch
+    from ivfhnsw_tpu_torch.drivers import common as C
+    from ivfhnsw_tpu_torch.drivers import vector_add
+    from ivfhnsw_tpu_torch.models.grouping import IVFADCGroupingIndex
+    from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
+    from ivfhnsw_tpu_torch.tools import vector_split
+    from ivfhnsw_tpu_torch.utils import checkpoint
+
+    nb, step = ds.nb, C.ASSIGN_BATCH
+    stages = {}
+
+    def stage(name, fn):
+        return timed(stages, name, fn, device)
+    x_dev = stage("upload", lambda: torch.tensor(ds.base, device=device))
+    keys = C.read_assignments(files.path(
+        files.SHARED["path_precomputed_idxs"]))[:nb]
+    ids = np.arange(nb, dtype=np.int32)
+
+    def fresh_ivf():
+        f = IVFADCIndex(index.config, device)
+        f.set_centroids(index.centroids)
+        f.pq, f.norm_pq = index.pq, index.norm_pq
+        return f
+
+    def fresh_grp():
+        g = IVFADCGroupingIndex(gi.config, device)
+        g.set_centroids(gi.centroids)
+        g.compute_neighbor_centroids()
+        g.pq, g.norm_pq, g.opq_R = gi.pq, gi.norm_pq, gi.opq_R
+        return g
+
+    # each build twice, from host batches (uploaded by the call) and from
+    # the device copy: the same assignment and encoding, so the same store
+    for where, rows in (("host", lambda o: ds.base[o:o + step]),
+                        ("device", lambda o: x_dev[o:o + step])):
+        f, g = fresh_ivf(), fresh_grp()
+        add = f.add_batch if where == "host" else f.add_batch_device
+        alpha = g.alpha_pass if where == "host" else g.alpha_pass_device
+        gadd = g.add_batch if where == "host" else g.add_batch_device
+
+        def add_ivf():
+            for off in range(0, nb, step):
+                add(rows(off), ids[off:off + step])
+
+        def alpha_grp():
+            for off in range(0, nb, step):
+                alpha(rows(off), keys[off:off + step])
+            g.finalize_alphas()
+
+        def add_grp():
+            for off in range(0, nb, step):
+                gadd(rows(off), ids[off:off + step], keys[off:off + step])
+        stage(f"ivfadc_add_{where}", add_ivf)
+        stage(f"ivfadc_finalize_{where}", f.finalize)
+        same_store(f.store, index.store, f"ivfadc build from {where} rows")
+        stage(f"flagship_alpha_pass_{where}", alpha_grp)
+        stage(f"flagship_add_{where}", add_grp)
+        stage(f"flagship_finalize_{where}", lambda: (
+            g.finalize(), g.compute_inter_centroid_dists()))
+        if not torch.equal(g.alphas, gi.alphas):
+            raise AssertionError(f"flagship build from {where} rows: alphas "
+                                 "differ from phase 8's")
+        same_store(g.store, gi.store, f"flagship build from {where} rows")
+        del f, g
+    del x_dev
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[device] both indexes built from host rows (add_batch, "
+          f"alpha_pass) and from the base uploaded once (add_batch_device, "
+          f"alpha_pass_device): every store torch.equal to phases 4 / 8, "
+          f"alphas torch.equal; seconds "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+
+    # release_device, then the same search
+    for name, idx, prm, ref in (("ivfadc", index, cfg.search, results),
+                                ("flagship", gi, gcfg.search, gresults)):
+        idx.engine, idx.scan_layout, idx.scan_topk = "fused", "auto", "auto"
+        want = ref[idx._resolve_layout()]
+        st = idx.store
+        dropped = sum(t.numel() * t.element_size() for t in st._dev.values())
+        held = torch.cuda.memory_allocated(device) if device.type == "cuda" \
+            else 0
+        idx.release_device()
+        freed = (held - torch.cuda.memory_allocated(device)
+                 if device.type == "cuda" else 0)
+        if st._dev or st._grouped is not None or (
+                device.type == "cuda" and freed < dropped):
+            raise AssertionError(f"{name} release_device: {freed} B freed "
+                                 f"of the store's {dropped} B")
+        t = time.perf_counter()
+        d, l = pl.counted("15", idx.scan_gran(), [KERNEL_OF[name]],
+                          lambda: idx.search(ds.queries, prm),
+                          f"{name} search after release_device")
+        secs = time.perf_counter() - t
+        if not (np.array_equal(d, want["dists"])
+                and np.array_equal(l, want["labels"])):
+            raise AssertionError(f"{name}: the search after release_device "
+                                 "differs from the one before")
+        print(f"[device] {name} release_device freed {freed} B of device "
+              f"memory (of which the store's flat tensors {dropped} B); the "
+              f"next search ({secs:.3f} s, the store uploaded "
+              f"again) equals phase {4 if name == 'ivfadc' else 8}'s on all "
+              f"{ds.nq} queries", flush=True)
+
+    # checkpoint directories
+    for name, idx, prm, ref in (("ivfadc", index, cfg.search, results),
+                                ("flagship", gi, gcfg.search, gresults)):
+        cdir = files.path(f"checkpoint_{name}")
+        t = time.perf_counter()
+        checkpoint.save_index(idx, cdir)
+        t_save = time.perf_counter() - t
+        nbytes = sum(os.path.getsize(os.path.join(cdir, n))
+                     for n in os.listdir(cdir))
+        t = time.perf_counter()
+        li = checkpoint.load_index(cdir, device)
+        C._sync(device)
+        t_load = time.perf_counter() - t
+        li.engine, li.scan_layout, li.scan_topk = "fused", "auto", "auto"
+        want = ref[li._resolve_layout()]
+        d, l = pl.counted("15", li.scan_gran(), [KERNEL_OF[name]],
+                          lambda: li.search(ds.queries, prm),
+                          f"{name} search of the loaded checkpoint")
+        if not (np.array_equal(d, want["dists"])
+                and np.array_equal(l, want["labels"])):
+            raise AssertionError(f"{name}: the loaded checkpoint searches "
+                                 "differently")
+        print(f"[checkpoint] {name}: save_index {t_save:.3f} s, {nbytes} B "
+              f"in {len(os.listdir(cdir))} files; load_index {t_load:.3f} s; "
+              f"search equal on all {ds.nq} queries", flush=True)
+        shutil.rmtree(cdir)
+
+    # vector_split of base.fvecs, then vector_add over its segments
+    seg_dir, out = files.path("segments"), files.path("vector_add_split")
+    os.makedirs(out)
+    t = time.perf_counter()
+    written = vector_split.split(files.path("base.fvecs"), cfg.index.d, 4,
+                                 seg_dir)
+    t_split = time.perf_counter() - t
+    t = time.perf_counter()
+    res = pl.counted("15", None, ["grouping_scan_slots"],
+                     lambda: vector_add.main(files.vector_add_argv(
+                         out, segment_dir=seg_dir)), "vector_add -segment_dir")
+    wall = time.perf_counter() - t
+    names = sorted(os.listdir(out))
+    if ([r["ntotal"] for r in res] != [r["ntotal"] for r in va]
+            or [r["recalls"] for r in res] != [r["recalls"] for r in va]):
+        raise AssertionError(
+            f"vector_add over vector_split's segments: ntotal / recall "
+            f"{[(r['ntotal'], r['recalls'][10]) for r in res]}, phase 12 "
+            f"{[(r['ntotal'], r['recalls'][10]) for r in va]}")
+    if names != sorted(os.listdir(files.path("vector_add"))) or not all(
+            filecmp.cmp(os.path.join(out, n),
+                        os.path.join(files.path("vector_add"), n),
+                        shallow=False) for n in names):
+        raise AssertionError("vector_add over vector_split's segments: its "
+                             "index files differ from phase 12's")
+    print(f"[split] vector_split of base.fvecs into {len(written)} segments "
+          f"in {t_split:.2f} s ({[os.path.basename(w) for w in written]}); "
+          f"vector_add -segment_dir over them {wall:.2f} s: ntotal "
+          f"{[r['ntotal'] for r in res]}, R@10 per segment "
+          f"{[round(r['recalls'][10], 4) for r in res]}, equal to phase 12's "
+          f"-segments 4 run, index files byte-identical", flush=True)
+    shutil.rmtree(seg_dir)
+
+
+def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
+                 kernels: list, pl: PhaseLaunches) -> None:
+    """Phase 16: the SIFT-like corpus (the JAX bench's siftlike stage,
+    bench.py:1787-1821): both indexes built at the primary point, searched
+    with the fused engine at both slot widths (IVFADC wide and two-phase,
+    the flagship wide); each kernel's time and lane fill on this corpus;
+    SiftLikeDeviceGen against the host corpus."""
+    import dataclasses
+
+    import torch
+    from ivfhnsw_tpu_torch.drivers import common as C
+    from ivfhnsw_tpu_torch.models.grouping import IVFADCGroupingIndex
+    from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    from ivfhnsw_tpu_torch.utils.recall import recall_at_k
+    from ivfhnsw_tpu_torch.utils.siftlike import (D, SiftLikeCorpus,
+                                                  SiftLikeDeviceGen)
+
+    nb, nq, step = p["nb"], p["nq"], C.ASSIGN_BATCH
+    stages = {}
+
+    def stage(name, fn):
+        return timed(stages, name, fn, device)
+    corpus = SiftLikeCorpus(n_classes=65536, seed=1)
+    per = 125_000
+
+    def draw():
+        # one RandomState per batch: the same bytes in any order, so the
+        # batches are drawn on every host core at once
+        with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+            parts = list(ex.map(lambda i: corpus.batch(per, seed=100 + i),
+                                range(-(-nb // per))))
+        return np.concatenate(parts)[:nb]
+    base = stage("corpus_host", draw)
+    queries = corpus.batch(nq, seed=9999)
+    gt = stage("ground_truth", lambda: C.exact_nn(queries, base, device))
+    icfg = dataclasses.replace(cfg.index, d=D, nsubc=0, do_opq=False)
+    idx = IVFADCIndex(icfg, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    stage("centroids", lambda: idx.train_centroids(gen, base[:300_000],
+                                                   niter=10))
+    stage("pq", lambda: idx.train_pq(gen, base[:65_536]))
+    keys = stage("assign", lambda: np.concatenate(
+        [idx.assign(base[o:o + step]) for o in range(0, nb, step)]))
+    ids = np.arange(nb, dtype=np.int32)
+
+    def add(index):
+        for o in range(0, nb, step):
+            index.add_batch(base[o:o + step], ids[o:o + step],
+                            keys[o:o + step])
+        index.finalize()
+    stage("add", lambda: add(idx))
+    g = IVFADCGroupingIndex(dataclasses.replace(
+        icfg, nsubc=FLAGSHIP["nsubc"], do_opq=FLAGSHIP["do_opq"]), device)
+    g.set_centroids(idx.centroids)
+    stage("flagship_neighbours", g.compute_neighbor_centroids)
+    stage("flagship_pq", lambda: g.train_pq(gen, base[:65_536]))
+
+    def alpha():
+        for o in range(0, nb, step):
+            g.alpha_pass(base[o:o + step], keys[o:o + step])
+        g.finalize_alphas()
+    stage("flagship_alpha_pass", alpha)
+    stage("flagship_add", lambda: (add(g), g.compute_inter_centroid_dists()))
+    print(f"[siftlike] corpus SiftLikeCorpus(n_classes=65536, seed=1): "
+          f"{nb} x {D} base, {nq} held-out queries; lists mean "
+          f"{nb / idx.nc:.1f} max {idx.store.max_list_size()}; flagship "
+          f"groups max {int(g.store.grouped(g.nsubc).group_sizes.max())}; "
+          f"stages_s " + json.dumps({k: round(v, 3)
+                                     for k, v in stages.items()}), flush=True)
+
+    params = cfg.search
+    gp = dataclasses.replace(params, do_pruning=FLAGSHIP["do_pruning"])
+    out = {}
+    runs = [("ivfadc", idx, params, layout, topk) for layout in
+            ("chunk", "quad") for topk in ("wide", "twophase")]
+    runs += [("flagship", g, gp, layout, "wide")
+             for layout in ("chunk", "quad")]
+    for name, ix, prm, layout, topk in runs:
+        ix.engine, ix.scan_layout, ix.scan_topk = "fused", layout, "auto"
+        if name == "ivfadc":
+            ix.scan_topk = topk
+        need = [KERNEL_OF[name]] + (["adc_scan_slots_min"]
+                                    if topk == "twophase" else [])
+        ix.search(queries[:256], prm)                         # warm shapes
+        t = time.perf_counter()
+        d, l = pl.counted("16", ix.scan_gran(), need,
+                          lambda: ix.search(queries, prm),
+                          f"siftlike {name} {layout} {topk}")
+        wall = time.perf_counter() - t
+        if d.shape != (nq, prm.k) or not np.isfinite(d).all() or (
+                l.min() < 0 or l.max() >= nb):
+            raise AssertionError(f"siftlike {name} {layout} {topk}: bad "
+                                 "results")
+        out[name, layout, topk] = (d, l, recall_at_k(l, gt, ks=(1, 10)),
+                                   wall)
+    sub = min(512, nq)
+    for name, ix, prm in (("ivfadc", idx, params), ("flagship", g, gp)):
+        ix.engine = "torch"
+        d_ref, l_ref = ix.search(queries[:sub], prm)
+        for (n2, layout, topk), (d, l, _, _) in out.items():
+            if n2 == name:
+                assert_same(d_ref, l_ref, d[:sub], l[:sub],
+                            f"siftlike {name} {layout} {topk} vs torch")
+        ix.engine = "fused"
+    for key, (d, l, rec, wall) in out.items():
+        name, layout, topk = key
+        clustered = (results if name == "ivfadc" else gresults)[layout][
+            "recalls"]
+        if rec[10] < 0.1:
+            raise AssertionError(f"siftlike {key}: R@10 {rec[10]}")
+        print(f"[siftlike] {name} {layout} {topk}: R@1 {rec[1]:.4f} R@10 "
+              f"{rec[10]:.4f} (clustered corpus {clustered[1]:.4f} / "
+              f"{clustered[10]:.4f}), {nq} queries at batch "
+              f"{min(SEARCH_BATCH, nq)} in {wall:.4f} s "
+              f"({1e6 * wall / nq:.3f} us/query); {sub} queries match the "
+              "torch engine", flush=True)
+
+    # each kernel on this corpus's schedule for one batch
+    q = torch.tensor(queries[:SEARCH_BATCH], device=device)
+    B = q.shape[0]
+    for layout in ("chunk", "quad"):
+        idx.scan_layout = g.scan_layout = layout
+        gran = idx.scan_gran()
+        args = (*idx.scan_inputs(q, params), gran)
+        length = args[5]
+        wide = tk.adc_scan_slots(*args)
+        err = compare(wide, tk.adc_scan_slots_plain(*args),
+                      f"siftlike gran={gran}")
+        check_min_kernel(args, wide, f"siftlike gran={gran}")
+        fill = int(length.sum()) / (B * length.shape[1] * gran)
+        ms = device_ms(lambda: tk.adc_scan_slots(*args))
+        ms_min = device_ms(lambda: tk.adc_scan_slots_min(*args))
+        gargs = (*g.grouping_scan_inputs(q, gp), gran)
+        gout = tg.grouping_scan_slots(*gargs)
+        if not torch.equal(gout, tg.grouping_scan_slots_plain(*gargs)):
+            raise AssertionError(f"siftlike grouping gran={gran}: kernel "
+                                 "not torch.equal to its plain version")
+        glen = int(gargs[7].sum())
+        gfill = glen / gout.numel()
+        kept = int(torch.isfinite(gout).sum()) / max(glen, 1)
+        gms = device_ms(lambda: tg.grouping_scan_slots(*gargs))
+        for name, t_ms, lane_fill in (
+                (f"adc_scan_slots_gran{gran}", ms, fill),
+                (f"adc_scan_slots_min_gran{gran}", ms_min, fill),
+                (f"grouping_scan_slots_gran{gran}", gms, gfill)):
+            rec = next(k for k in kernels if k["name"] == name)
+            rec["siftlike_ms"], rec["siftlike_lane_fill"] = t_ms, lane_fill
+        print(f"[siftlike] kernels at gran {gran}, B={B}: wide {ms:.4f} ms, "
+              f"min {ms_min:.4f} ms, lane fill {fill:.3f} over "
+              f"{length.shape[1]} slots (max_abs_err {err!r}, min kernel "
+              f"torch.equal); grouping {gms:.4f} ms, lane fill {gfill:.3f} "
+              f"over {gargs[6].shape[1]} slots, unpruned {kept:.3f} of "
+              f"filled lanes (torch.equal to plain)", flush=True)
+    del idx, g, q
+
+    # the device generator against the host corpus
+    dg = SiftLikeDeviceGen(device, n_classes=65536, seed=1)
+    t = time.perf_counter()
+    x = dg.batch_device(7, nb)
+    C._sync(device)
+    t_gen = time.perf_counter() - t
+    if not torch.equal(x, dg.batch_device(7, nb)):
+        raise AssertionError("SiftLikeDeviceGen: one seed gave two batches")
+    if (x.min() < 0 or x.max() > 255 or not torch.equal(x, torch.floor(x))
+            or x.shape != (nb, D)):
+        raise AssertionError("SiftLikeDeviceGen: off the uint8 grid")
+    stats_dev = (float((x == 0).float().mean()),
+                 float(torch.linalg.vector_norm(x, dim=1).mean()),
+                 float(x.mean()))
+    stats_host = (float((base == 0).mean()),
+                  float(np.linalg.norm(base, axis=1).mean()),
+                  float(base.mean()))
+    dz = abs(stats_dev[0] - stats_host[0])
+    dn = abs(stats_dev[1] - stats_host[1]) / stats_host[1]
+    dm = abs(stats_dev[2] - stats_host[2]) / stats_host[2]
+    if dz >= 0.05 or dn >= 0.03 or dm >= 0.10:
+        raise AssertionError(f"SiftLikeDeviceGen statistics {stats_dev} "
+                             f"against the host corpus's {stats_host}")
+    dg.release()
+    del x
+    print(f"[siftlike] SiftLikeDeviceGen: {nb} x {D} on the card in "
+          f"{t_gen:.3f} s (host corpus {stages['corpus_host']:.2f} s); the "
+          f"same seed gives the same tensor; zero share / mean norm / mean "
+          f"{stats_dev[0]:.4f} / {stats_dev[1]:.2f} / {stats_dev[2]:.3f} "
+          f"against the host corpus's {stats_host[0]:.4f} / "
+          f"{stats_host[1]:.2f} / {stats_host[2]:.3f} (bounds 0.05, 3%, "
+          "10%)", flush=True)
 
 
 if __name__ == "__main__":

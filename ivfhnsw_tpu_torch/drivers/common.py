@@ -367,13 +367,16 @@ def resolve_device(extras: dict) -> torch.device:
     return device
 
 
-def build_pipeline(index, cfg: RunConfig, ds, grouping: bool = False) -> dict:
+def build_pipeline(index, cfg: RunConfig, ds, grouping: bool = False,
+                   before_index=None) -> dict:
     """The build stages of the eval drivers on ``index``, each loaded from
     its file or computed (and then saved): centroids, [neighbour
-    centroids,] quantizers, assignments, the index. Returns the stage
-    record {"how": {"centroids", "pq": "loaded" | "trained", "assign":
-    "loaded" | "computed", "index": "read" | "built"}, "seconds": {stage:
-    host seconds, the device synced at each end}}."""
+    centroids,] quantizers, assignments, the index. ``before_index``, when
+    given, is called with the assignments before the index is read or
+    built. Returns the stage record {"how": {"centroids", "pq": "loaded" |
+    "trained", "assign": "loaded" | "computed", "index": "read" |
+    "built"}, "seconds": {stage: host seconds, the device synced at each
+    end}, "assignments": the coarse ids [nb] int32}."""
     gen = torch.Generator(device=index.device).manual_seed(0)
     how, seconds = {}, {}
 
@@ -392,10 +395,12 @@ def build_pipeline(index, cfg: RunConfig, ds, grouping: bool = False) -> dict:
     how["assign"] = ("loaded" if have_file(cfg.path_precomputed_idxs)
                      else "computed")
     idxs = stage("assign", lambda: load_or_assign(index, cfg, ds))
+    if before_index is not None:
+        before_index(idxs)
     built = build_or_read_index(index, cfg, ds, idxs, grouping=grouping)
     how["index"] = "read" if "read" in built else "built"
     seconds.update(built)
-    return {"how": how, "seconds": seconds}
+    return {"how": how, "seconds": seconds, "assignments": idxs}
 
 
 def driver_setup(cfg: RunConfig, extras: dict):

@@ -27,8 +27,9 @@ cuda, and the segment flags):
         -segments 4 -nsubc 64 -d 128 -nc 4096 -nb 2000000 -nq 8192
 ``-segment_dir DIR`` holds ``*.fvecs`` (or ``*.bvecs``) base segments and,
 optionally, as many ``*.ivecs`` precomputed-idx segments, paired in sorted
-order (the output of the reference's vector_split; the JAX package's
-tools/vector_split.py is not ported yet). Without it, the dataset's base is
+order (the output of the reference's vector_split, or of
+``python -m ivfhnsw_tpu_torch.tools.vector_split``, which writes the JAX
+package's tools/vector_split.py bytes). Without it, the dataset's base is
 split into ``-segments N`` (default 5) segment pairs in a temporary
 directory, which also holds the ``index_NN.index`` files when no
 ``-path_index`` prefix is given, and is removed when the run ends. With

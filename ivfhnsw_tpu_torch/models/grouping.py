@@ -24,8 +24,11 @@ Search engines:
   of the JAX ``"pallas"`` engine;
 - ``"auto"`` — ``"fused"``.
 
-``search`` and ``search_device`` run them through the per-batch core of
-``IVFADCIndex``; ``scan_slot_demand`` counts group-granular slots;
+``search`` (with ``trace=True`` on the torch engine, "included" being the
+probes the budget over unpruned codes admits) and ``search_device`` run
+them through the per-batch core of ``IVFADCIndex``; ``scan_slot_demand``
+counts group-granular slots; the device-resident build is
+``assign_batch_device``, ``alpha_pass_device`` and ``add_batch_device``;
 ``search_disk`` reranks 2k candidates against the raw base file on the host.
 ``write`` / ``read`` take the reference's Grouping ``.index`` format,
 byte-identical to the JAX package's.
@@ -209,6 +212,7 @@ class IVFADCGroupingIndex(IVFADCIndex):
                              f"the lists hold {ids.shape[0]} ids")
         self._seed_builder(codes.reshape(-1, self.config.pq_m),
                            ids.astype(np.int32), norm_codes, offsets)
+        self.finalize()
         self.nn_centroid_idxs = torch.tensor(nn.astype(np.int64),
                                              device=self.device)
         self.alphas = self._tensor(alphas)
@@ -349,6 +353,27 @@ class IVFADCGroupingIndex(IVFADCIndex):
                              norm_codes.cpu().numpy())
         self.store = None
 
+    def assign_batch_device(self, x_dev: torch.Tensor) -> np.ndarray:
+        """Exact nearest-centroid ids [n] int32 (host) of rows already on
+        this index's device, for both passes of a device-resident build."""
+        return self._assign_device_exact(x_dev)
+
+    def alpha_pass_device(self, x_dev: torch.Tensor, keys,
+                          batch: int = ALPHA_BATCH) -> None:
+        """Pass 1 on rows already on this index's device: ``alpha_pass``
+        without an upload, so the sums are alpha_pass's over the same
+        batches."""
+        self.alpha_pass(self._device_rows(x_dev, "alpha_pass_device"), keys,
+                        batch)
+
+    def add_batch_device(self, x_dev: torch.Tensor, xids=None,
+                         precomputed_idx=None,
+                         batch: int = ALPHA_BATCH) -> None:
+        """Pass 2 on rows already on this index's device: ``add_batch``
+        without an upload, so the store is bit-equal to add_batch's."""
+        self.add_batch(self._device_rows(x_dev, "add_batch_device"), xids,
+                       precomputed_idx, batch)
+
     def add(self, x, xids=None, precomputed_idx=None) -> None:
         """Both passes for an in-memory dataset."""
         keys = self._keys_for(self._tensor(x), precomputed_idx)
@@ -419,10 +444,11 @@ class IVFADCGroupingIndex(IVFADCIndex):
         return max(nslots, 1)
 
     def _search_torch(self, q: torch.Tensor, params: SearchParams,
-                      nprobe: int, L: int):
+                      nprobe: int, L: int, trace: bool = False):
         """Portable engine (the JAX ``_grouping_search_core``): the scan
         window over the scanned subgroups of the budgeted probes, 4-term
-        ADC, top-k."""
+        ADC, top-k; with ``trace`` also (probes, qc_dists, included,
+        n_scanned), "included" the probes the budget admits."""
         store, gv = self.store, self._grouped()
         qc_dists, probes = streaming_topk_l2(
             q, self.centroids, nprobe, block=COARSE_BLOCK,
@@ -446,7 +472,10 @@ class IVFADCGroupingIndex(IVFADCIndex):
         dists, sel = adc_ops.adc_scan(luts, store.codes_t[pos], bias, valid,
                                       params.k)
         labels = torch.gather(store.ids_t[pos], 1, sel).long()
-        return dists, torch.where(torch.isfinite(dists), labels, -1)
+        out = dists, torch.where(torch.isfinite(dists), labels, -1)
+        if trace:
+            return (*out, (probes, qc_dists, inc, valid.sum(dim=1)))
+        return out
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
@@ -511,7 +540,7 @@ class IVFADCGroupingIndex(IVFADCIndex):
                             max_codes=self.max_codes,
                             do_pruning=self.do_pruning)
 
-    def _searcher(self, params: SearchParams):
+    def _searcher(self, params: SearchParams, trace: bool = False):
         """As ``IVFADCIndex._searcher`` (so ``search`` and ``search_device``
         run it), with ``params.do_pruning`` (default ``self.do_pruning``)
         selecting subgroup pruning."""
@@ -523,7 +552,7 @@ class IVFADCGroupingIndex(IVFADCIndex):
             raise RuntimeError("grouping index has no alphas or neighbours: "
                                "build it (alpha_pass, finalize_alphas, "
                                "add_batch) first")
-        return super()._searcher(params)
+        return super()._searcher(params, trace)
 
     def _slot_demand(self, probes: torch.Tensor, params: SearchParams,
                      gran: int) -> torch.Tensor:

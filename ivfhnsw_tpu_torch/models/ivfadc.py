@@ -16,11 +16,17 @@ core with engines
   (``scan_topk``);
 - ``"auto"`` — ``"fused"``;
 
+``search(trace=True)`` (the reference's search_debug: per-query probes,
+their distances, which made the budget and the codes scanned, from the
+torch engine whatever ``engine`` says) with the ``stats`` counters,
 ``scan_slot_demand`` (profiled slot counts), ``search_precomputed``,
-``search_per_probe`` and ``search_enn``; and the file IO: ``write`` /
+``search_per_probe`` and ``search_enn``; the device-resident build
+(``add_batch_device``) and ``release_device``; and the file IO: ``write`` /
 ``read`` (the reference's ``.index`` format, byte-identical to the JAX
-package's), ``save_quantizers`` / ``load_quantizers`` (faiss ``.pq`` and
-``.opq``) and ``load_centroids`` (``.fvecs``).
+package's), ``write2`` (the ORCV home dir) and ``add_batch2`` (ORCV output
+records), ``reseed_builder_from_store``, ``save_quantizers`` /
+``load_quantizers`` (faiss ``.pq`` and ``.opq``) and ``load_centroids``
+(``.fvecs``).
 
 Every tensor of an index lives on the ``device`` it was created with; the
 fused engine runs its scan kernels on a CUDA device and the kernels' plain
@@ -28,6 +34,8 @@ versions on the CPU.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -88,6 +96,9 @@ class IVFADCIndex:
         # Defaults mirroring IndexIVF_HNSW.h:61-62 (overridable per call).
         self.nprobe = 32
         self.max_codes = 10000
+        # ORCV match thresholds (IndexIVF_HNSW.h:90-91 defaults).
+        self.dmatch = 4444.0
+        self.dnear = 8888.0
         self.engine = "auto"        # "torch" | "fused" | "auto" (= fused)
         # Fused-engine slot width: "chunk" = 256 codes, "quad" = 1024, or
         # "auto" by average list size (see _resolve_layout).
@@ -99,6 +110,9 @@ class IVFADCIndex:
         # package's rule (see _resolve_two_phase). The torch engine ignores
         # it.
         self.scan_topk = "auto"
+        # Counters (the analog of hnswlib's dist_calc, hnswalg.h:58):
+        # queries of every search; codes scanned, counted by traced searches.
+        self.stats = {"queries": 0, "codes_scanned": 0}
 
     @classmethod
     def from_numpy_state(cls, config: IndexConfig, centroids, codebooks,
@@ -117,6 +131,7 @@ class IVFADCIndex:
         if opq_R is not None:
             idx.opq_R = idx._tensor(opq_R)
         idx._seed_builder(codes, ids, norm_codes, list_offsets)
+        idx.finalize()
         return idx
 
     def _tensor(self, x) -> torch.Tensor:
@@ -129,6 +144,20 @@ class IVFADCIndex:
         if isinstance(keys, torch.Tensor):
             return keys.to(device=self.device, dtype=torch.int64)
         return torch.tensor(np.asarray(keys, np.int64), device=self.device)
+
+    def _on_device(self, x: torch.Tensor, what: str) -> torch.Tensor:
+        """x itself when it is a tensor on this index's device, else
+        TypeError / ValueError (the device entry points never copy)."""
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{what} takes a tensor on the index's device "
+                            f"({self.device})")
+        dev = x.device
+        if dev.type != self.device.type or (
+                self.device.index is not None and dev.index is not None
+                and dev.index != self.device.index):
+            raise ValueError(f"{what}: tensor on {dev}, index on "
+                             f"{self.device}")
+        return x
 
     def _keys_for(self, x: torch.Tensor, precomputed_idx) -> torch.Tensor:
         """Centroid ids of device rows x: ``precomputed_idx`` when given,
@@ -279,19 +308,74 @@ class IVFADCIndex:
                          norm_codes.cpu().numpy())
         self.store = None
 
+    def _device_rows(self, x_dev: torch.Tensor, what: str) -> torch.Tensor:
+        """f32 rows of a tensor already on this index's device, for the
+        device-resident build. Assignment there is the exact sweep; the
+        JAX package's routed assigner is not ported."""
+        if getattr(self, "_fast_assigner", None) is not None:
+            raise NotImplementedError("the routed assigner is not ported; "
+                                      "the device build assigns exactly")
+        return self._on_device(x_dev, what).to(torch.float32)
+
+    def _assign_device_exact(self, x_dev: torch.Tensor) -> np.ndarray:
+        """Exact nearest-centroid ids [n] int32 (host) of rows already on
+        this index's device."""
+        x = self._device_rows(x_dev, "_assign_device_exact")
+        return self._assign_t(x).cpu().numpy().astype(np.int32)
+
+    def add_batch_device(self, x_dev: torch.Tensor, xids=None) -> None:
+        """Device-resident add_batch: x [n, d] is already on this index's
+        device, so nothing is uploaded; only the keys, codes and norm codes
+        go to the host builder. The same assignment and encoding as
+        ``add_batch`` of the same rows, so the store is bit-equal."""
+        self.add_batch(self._device_rows(x_dev, "add_batch_device"), xids)
+
+    def add_batch2(self, x, xids, precomputed_idx, eids) -> bytes:
+        """add_batch2 equivalent (IndexIVF_HNSW.cpp:140-204): add_batch of x
+        under the given centroid ids, returning the ORCV output buffer of
+        one record per vector [8B eid | pq_m B PQ code | 1B norm code]."""
+        x = self._tensor(x)
+        keys = self._keys(precomputed_idx)
+        codes, norm_codes = self._encode_batch(x, keys)
+        codes_np, norms_np = codes.cpu().numpy(), norm_codes.cpu().numpy()
+        self.builder.add(keys.cpu().numpy(), xids, codes_np, norms_np)
+        self.store = None
+        rec = np.dtype([("eid", "<u8"), ("code", "u1", (self.config.pq_m,)),
+                        ("norm", "u1")])
+        buf = np.empty(x.shape[0], rec)
+        buf["eid"] = np.asarray(eids, np.uint64)
+        buf["code"] = codes_np
+        buf["norm"] = norms_np
+        return buf.tobytes()
+
     def finalize(self) -> None:
         self.store = self.builder.finalize(self.device)
 
     def _seed_builder(self, codes, ids, norm_codes, list_offsets) -> None:
-        """Refill the builder with a finalized store's flat arrays (sorted by
-        list) and finalize it, so later ``add_batch`` + ``finalize`` calls
+        """Replace the builder with one holding a finalized store's flat
+        arrays (sorted by list), so that ``add_batch`` + ``finalize``
         extend that store."""
         offsets = np.asarray(list_offsets, np.int64)
         keys = np.repeat(np.arange(len(offsets) - 1, dtype=np.int32),
                          np.diff(offsets))
         self.builder = PostingListBuilder(len(offsets) - 1, self.config.pq_m)
         self.builder.add(keys, ids, codes, norm_codes)
-        self.finalize()
+
+    def reseed_builder_from_store(self) -> None:
+        """Rebuild the builder from the store, so that a persisted index
+        keeps growing (the reference adds to a read index,
+        test_ivfhnsw_grouping_sift1b_vector_add.cpp:262-274). ``read``
+        already seeds the builder here; this replaces the builder and never
+        adds the store to it a second time."""
+        store = self._ensure_store()
+        self._seed_builder(store.codes, store.ids, store.norm_codes,
+                           store.list_offsets)
+
+    def release_device(self) -> None:
+        """Drop the store's device tensors (the quantizers and centroids
+        stay); the next device use uploads them again."""
+        if self.store is not None:
+            self.store.release_device()
 
     def _ensure_store(self) -> PostingListStore:
         if self.store is None:
@@ -375,31 +459,36 @@ class IVFADCIndex:
         return min(_round_up(self.nc, 128), cap)
 
     def _search_torch(self, q: torch.Tensor, params: SearchParams,
-                      nprobe: int, L: int):
+                      nprobe: int, L: int, trace: bool = False):
         """Portable engine (the JAX ``_search_core``): exact coarse, then
         :meth:`_scan_window`."""
         qc_dists, probes = streaming_topk_l2(
             q, self.centroids, nprobe, block=COARSE_BLOCK,
             point_sqnorms=self.centroid_norms)
         return self._scan_window(q, qc_dists, probes, params.max_codes, L,
-                                 params.k)
+                                 params.k, trace)
 
     def _scan_window(self, q: torch.Tensor, qc_dists: torch.Tensor,
-                     probes: torch.Tensor, max_codes: int, L: int, k: int):
+                     probes: torch.Tensor, max_codes: int, L: int, k: int,
+                     trace: bool = False):
         """The portable scan over given probes [B, P] (ascending distance
         qc_dists [B, P]): LUTs, the max_codes window of L codes, 3-term
         ADC, top-k. Returns (dists [B, k] f32, labels [B, k] int64, -1
-        where the distance is +inf)."""
+        where the distance is +inf), and with ``trace`` the trace tuple
+        (probes, qc_dists, included [B, P] bool, n_scanned [B])."""
         store = self.store
         luts = _pq_ip_luts(self._rotate(q), self.pq.codebooks)
-        pos, seg, valid, _ = adc_ops.probe_positions(
+        pos, seg, valid, included = adc_ops.probe_positions(
             probes, store.list_offsets_t, max_codes, L)
         g_norm = self.norm_pq.centroids[store.norm_codes_t[pos].long()]
         term1 = torch.gather(qc_dists - self.centroid_norms[probes], 1, seg)
         dists, sel = adc_ops.adc_scan(luts, store.codes_t[pos],
                                       term1 + g_norm, valid, k)
         labels = torch.gather(store.ids_t[pos], 1, sel).long()
-        return dists, torch.where(torch.isfinite(dists), labels, -1)
+        out = dists, torch.where(torch.isfinite(dists), labels, -1)
+        if trace:
+            return (*out, (probes, qc_dists, included, valid.sum(dim=1)))
+        return out
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
@@ -442,42 +531,65 @@ class IVFADCIndex:
         return SearchParams(k=10, nprobe=self.nprobe,
                             max_codes=self.max_codes)
 
-    def _searcher(self, params: SearchParams):
+    def _searcher(self, params: SearchParams, trace: bool = False):
         """Resolve what a search under ``params`` fixes for every batch
         (engine, coarse mode, slot count and width, top-k), and return the
         per-batch core: fn(q [B, d] f32 on the device) -> (dists [B, k]
-        f32, labels [B, k] int64), both on the device."""
+        f32, labels [B, k] int64), both on the device. ``trace`` takes the
+        torch engine whatever ``engine`` says, and its core also returns
+        the trace tuple (probes, qc_dists, included, n_scanned)."""
         self._ensure_store()
         nprobe = min(params.nprobe, self.nc)
         engine = self._resolve_engine()
         exact_reduce = self._exact_reduce(params)
-        if engine == "torch":
+        if engine == "torch" or trace:
             L = self._scan_budget(params)
-            return lambda q: self._search_torch(q, params, nprobe, L)
+            return lambda q: self._search_torch(q, params, nprobe, L, trace)
         nslots, gran = self._scan_slots(params, nprobe), self.scan_gran()
         two_phase = self._resolve_two_phase()
         return lambda q: self._search_fused(q, params, nprobe, nslots, gran,
                                             exact_reduce, two_phase)
 
     def _search_batches(self, q_all: torch.Tensor, params: SearchParams,
-                        batch: int):
+                        batch: int, trace: bool = False):
         """The per-batch core over q_all [N, d], ``batch`` rows at a time;
-        (dists [N, k], labels [N, k]) on the device."""
-        core = self._searcher(params)
+        (dists [N, k], labels [N, k]) on the device, and with ``trace`` the
+        trace tuple over all N queries."""
+        core = self._searcher(params, trace)
         out = [core(q_all[off:off + batch])
                for off in range(0, q_all.shape[0], batch)]
-        return torch.cat([d for d, _ in out]), torch.cat([l for _, l in out])
+        res = tuple(torch.cat([o[i] for o in out]) for i in range(2))
+        if trace:
+            res += (tuple(torch.cat([o[2][i] for o in out])
+                          for i in range(4)),)
+        return res
 
     def search(self, queries, params: SearchParams | None = None,
-               batch: int = 8192):
+               batch: int = 8192, trace: bool = False):
         """Batched query search, ``batch`` queries per pass. Returns
         (dists [nq, k] f32, labels [nq, k] int64) on the host; label -1
         where fewer than k codes were scanned. (The JAX package caps its
         kernel batch at 1024 for TPU scalar memory; nothing here needs
-        that cap.)"""
-        d, l = self._search_batches(self._tensor(queries),
-                                    params or self._default_params(), batch)
-        return d.cpu().numpy(), l.cpu().numpy()
+        that cap.)
+
+        ``trace=True`` (the reference's search_debug,
+        IndexIVF_HNSW.cpp:328-391) runs the torch engine and also returns
+        a dict of host arrays: "probes" [nq, nprobe] int32 (ascending
+        distance), "qc_dists" [nq, nprobe] f32, "included" [nq, nprobe]
+        bool (the probes the max_codes budget admits) and "n_scanned" [nq]
+        int32 (codes scanned). ``stats["queries"]`` counts every search,
+        ``stats["codes_scanned"]`` the codes of traced ones."""
+        res = self._search_batches(self._tensor(queries),
+                                   params or self._default_params(), batch,
+                                   trace)
+        d, l = res[0].cpu().numpy(), res[1].cpu().numpy()
+        self.stats["queries"] += d.shape[0]
+        if not trace:
+            return d, l
+        probes, qc, inc, nsc = (t.cpu().numpy() for t in res[2])
+        self.stats["codes_scanned"] += int(nsc.sum())
+        return d, l, {"probes": probes.astype(np.int32), "qc_dists": qc,
+                      "included": inc, "n_scanned": nsc.astype(np.int32)}
 
     def search_device(self, queries: torch.Tensor,
                       params: SearchParams | None = None, batch: int = 8192):
@@ -488,15 +600,8 @@ class IVFADCIndex:
         copy and no synchronisation; :meth:`search` runs the same per-batch
         core. (The JAX package's scalar-memory batch cap and one-launch
         ``lax.map`` are TPU workarounds with no counterpart here.)"""
-        if not isinstance(queries, torch.Tensor):
-            raise TypeError("search_device takes a tensor on the index's "
-                            f"device ({self.device}); use search for host "
-                            "arrays")
-        dev = queries.device
-        if dev.type != self.device.type or (
-                self.device.index is not None and dev.index is not None
-                and dev.index != self.device.index):
-            raise ValueError(f"queries on {dev}, index on {self.device}")
+        self._on_device(queries, "search_device (use search for host "
+                        "arrays)")
         if queries.dim() not in (2, 3):
             raise ValueError(f"queries must be [N, d] or [G, B, d], got "
                              f"shape {tuple(queries.shape)}")
@@ -634,11 +739,45 @@ class IVFADCIndex:
         np.cumsum(counts, out=offsets[1:])
         self._seed_builder(codes.reshape(-1, self.config.pq_m),
                            ids.astype(np.int32), norm_codes, offsets)
+        self.finalize()
         if buf.size >= pos + 4:
             n_norms = int(buf[pos:pos + 4].view("<u4")[0])
             norms = buf[pos + 4:pos + 4 + 4 * n_norms].view("<f4")
             if norms.size == nc:
                 self.centroid_norms = self._tensor(norms.copy())
+
+    def write2(self, home_dir: str, n_vecs: int) -> None:
+        """ORCV home-dir export (write2, IndexIVF_HNSW.cpp:672-755), the
+        bytes of the JAX package's ``write2``: hdr.vec (``OrcvHeader``),
+        cnorms.vec (lenvec of the centroid norms), pq.vec and normpq.vec
+        (one lenvec of codes / norm codes per list of the store), opq.vec
+        under OPQ (lenvec of the rotated centroids, centroids @ R.T) and an
+        empty edge.vec (the reference's graph; no graph here). A grouping
+        index writes its nc * nsubc subgroup lists under a header that says
+        nc, as the JAX package does."""
+        from ivfhnsw_tpu_torch.utils.orcv import OrcvHeader
+        os.makedirs(home_dir, exist_ok=True)
+        store = self._ensure_store()
+        cfg = self.config
+        OrcvHeader(n=n_vecs, nc=self.nc, code_size=cfg.code_size,
+                   code_bytes=cfg.code_size // 8, d=self.d, M=cfg.M,
+                   efConstruction=cfg.efConstruction,
+                   do_opq=1 if self.do_opq else 0).write(
+                       os.path.join(home_dir, "hdr.vec"))
+        with open(os.path.join(home_dir, "cnorms.vec"), "wb") as f:
+            io.write_len_vector(
+                f, self.centroid_norms.cpu().numpy().astype("<f4"))
+        counts = np.diff(store.list_offsets.astype(np.int64))
+        with open(os.path.join(home_dir, "pq.vec"), "wb") as f:
+            io.write_len_series(f, store.codes, counts * cfg.pq_m)
+        with open(os.path.join(home_dir, "normpq.vec"), "wb") as f:
+            io.write_len_series(f, store.norm_codes, counts)
+        if self.do_opq:
+            with open(os.path.join(home_dir, "opq.vec"), "wb") as f:
+                rotated = apply_rotation(self.centroids, self.opq_R)
+                io.write_len_vector(
+                    f, rotated.cpu().numpy().astype("<f4").ravel())
+        open(os.path.join(home_dir, "edge.vec"), "wb").close()
 
     # -- quantizer artifacts ------------------------------------------------
 

@@ -10,10 +10,11 @@ arrays sorted by centroid:
     list_offsets [nc+1]  int32   list i = rows [off[i], off[i+1])
 
 The canonical arrays are host numpy (the builder sorts there); the search
-engines read device tensors of the same arrays, uploaded once per store.
-The scan kernel reads ``codes`` and ``norm_codes`` in place, so the store
-has no tiled or list-aligned copy (the JAX package's ``tiled()``/``quad()``
-are TPU DMA formats).
+engines read device tensors of the same arrays, uploaded on first use and
+kept until :meth:`PostingListStore.release_device` drops them. The scan
+kernel reads ``codes`` and ``norm_codes`` in place, so the store has no
+tiled or list-aligned copy (the JAX package's ``tiled()``/``quad()`` are TPU
+DMA formats).
 
 The grouping index stores ``nc * nsubc`` lists in (centroid, subcentroid)
 order; :meth:`PostingListStore.grouped` gives its group-level view
@@ -32,7 +33,8 @@ import torch
 @dataclass
 class PostingListStore:
     """Finalized posting lists: host arrays plus their tensors on
-    ``device``."""
+    ``device`` (``codes_t``, ``ids_t``, ``norm_codes_t``, ``list_offsets_t``
+    int64), each uploaded on first use."""
 
     codes: np.ndarray         # [N, M] uint8
     ids: np.ndarray           # [N] int32
@@ -52,12 +54,36 @@ class PostingListStore:
         if int(self.list_offsets[-1]) != self.codes.shape[0]:
             raise ValueError("list_offsets[-1] != number of codes")
         self.device = torch.device(self.device)
-        dev = self.device
-        self.codes_t = torch.tensor(self.codes, device=dev)
-        self.ids_t = torch.tensor(self.ids, device=dev)
-        self.norm_codes_t = torch.tensor(self.norm_codes, device=dev)
-        self.list_offsets_t = torch.tensor(self.list_offsets, dtype=torch.int64,
-                                           device=dev)
+        self._dev: dict = {}
+        self._grouped = None
+
+    def _mirror(self, name: str, dtype=None) -> torch.Tensor:
+        if name not in self._dev:
+            self._dev[name] = torch.tensor(getattr(self, name), dtype=dtype,
+                                           device=self.device)
+        return self._dev[name]
+
+    @property
+    def codes_t(self) -> torch.Tensor:
+        return self._mirror("codes")
+
+    @property
+    def ids_t(self) -> torch.Tensor:
+        return self._mirror("ids")
+
+    @property
+    def norm_codes_t(self) -> torch.Tensor:
+        return self._mirror("norm_codes")
+
+    @property
+    def list_offsets_t(self) -> torch.Tensor:
+        return self._mirror("list_offsets", torch.int64)
+
+    def release_device(self) -> None:
+        """Drop every device tensor of the store and its grouped view; the
+        host arrays stay, and the next device use uploads them again."""
+        self._dev = {}
+        self._grouped = None
 
     @property
     def ntotal(self) -> int:
@@ -77,7 +103,7 @@ class PostingListStore:
     def grouped(self, nsubc: int) -> "GroupedView":
         """The group-level view of a grouping index's store (its lists are
         nc * nsubc subgroups in (centroid, subc) order); built once."""
-        view = getattr(self, "_grouped", None)
+        view = self._grouped
         if view is None or view.nsubc != nsubc:
             view = self._grouped = GroupedView.of(self, nsubc)
         return view
