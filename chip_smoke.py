@@ -97,6 +97,35 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    quantizer files (four index_NN.index files, ntotal 0.5M / 1M / 1.5M /
    2M, the last segment's recall beside the one-shot build's); [files]
    lines with every stage's seconds cold and warm and the files' sizes.
+13-16. trace and counters, ORCV, the device-resident build with
+   checkpoints and vector_split, the SIFT-like corpus (see their functions).
+17. the large-nc path at the JAX bench's scale2 point (bench.py:66-75,
+   :957-1075), nothing cut: 134,217,728 x 128d drawn on the card from the
+   bench's two-level corpus, nc=2^17; centroids by hierarchical seeding and
+   4 Lloyd rounds over 2M rows, PQ on 262,144; the routed two-level
+   assigner (w=4, 2048 supers) adopted if its match rate against exact
+   assignment on 32,768 rows is >= 0.98; 128 batches of 1,048,576 through
+   add_batch_device with the exact top-1 ground truth of 1024 queries
+   merged per batch; finalize; each stage timed, host RSS and device peak;
+   one Lloyd pass split into seeding, score GEMMs, sweep and segment sums.
+   Then the routed coarse structure: probe overlap against exact at w =
+   16, 32, 64; w = n_super equal to exact but at f32 ties, in its probes
+   and in a search that admits every probe; the routed side table's row
+   offsets and sizes equal to the store's for every query; each coarse
+   mode (exact, binned, approx, routed) searched wide and two-phase at
+   both slot widths under scan_budget = max scan_slot_demand * gran, in
+   turns, with the scan kernels' launch counts required to grow; recall
+   per mode, R@100 at k=100, the budgeted search equal to the unbudgeted
+   one and 64 queries equal to engine "torch"; each scan kernel torch.equal
+   to its plain version on this point's schedule, both timed; the inputs
+   of the approx decision ([scale2] lines; records gain "scale2");
+17b. coarse selection at nc=2^20 on the bench's scale3 corpus (bench.py:
+   1078-1120): hierarchical_seed at k=2^20 over 8,388,608 rows (seconds,
+   the list sizes of those rows under the routed assigner), then exact,
+   binned, approx and routed selection of 128 probes for 1024 queries,
+   timed, with their probe overlaps against exact ([coarse20] lines).
+   ``python3 chip_smoke.py --only 17,17b`` builds the kernels and runs
+   just these two phases (a partial run: it prints no result line).
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -107,8 +136,9 @@ lookup_ms, the time of its shared-memory table lookups at one word per bank
 per clock on every SM (SM count x 32 x the maximum SM clock that nvidia-smi
 reports), which is not part of the bound.
 
-Then one JSON line of kernel results, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.
+Then the command's seconds ([time] command_s), one JSON line of kernel
+results, the nvidia-smi line, and as the last line {"ok": true, "device":
+{...}}.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one CUDA device and exits non-zero, printing no result, without one.
@@ -144,6 +174,16 @@ GROUPING_LAB_SOURCE = "ivfhnsw_tpu_torch/csrc/grouping_lab.cu"
 FLAGSHIP = dict(nsubc=64, do_opq=True, do_pruning=True)
 SEARCH_BATCH = 8192  # IVFADCIndex.search's default batch
 LAB_SOURCE = "ivfhnsw_tpu_torch/csrc/scan_lab.cu"
+# Phase 17: the JAX bench's scale2 point (bench.py:66-75, :957-1075,
+# :3130-3195), nothing cut; phase 17b: its scale3 corpus at nc=2^20, coarse
+# selection only (bench.py:76-83, :1078-1120, :1170-1185).
+SCALE2 = dict(nb=134_217_728, nc=131_072, nq=1024, d=128, code_size=16,
+              k=10, nprobe=128, max_codes=100_000, n_super=2048, assign_w=4,
+              learn=2_000_000, pq_learn=262_144, batch=1_048_576,
+              match_sample=32_768, niter=4, ctl=64)
+COARSE20 = dict(nc=1_048_576, learn=8_388_608, nq=1024, d=128, nprobe=128,
+                n_super=2048, match_sample=32_768)
+OVERLAP_TARGET = 0.95
 
 
 def smi_line(fields: str = "name,power.limit") -> str:
@@ -167,13 +207,13 @@ def compare(out, ref, what: str) -> float:
     return float((out[fin] - ref[fin]).abs().max())
 
 
-def assert_same(d1, l1, d2, l2, what: str) -> None:
-    """The cross-engine contract: distances within RTOL/ATOL, labels may
-    differ only where distances tie."""
-    np.testing.assert_allclose(d2, d1, rtol=RTOL, atol=ATOL, err_msg=what)
+def assert_same(d1, l1, d2, l2, what: str, atol: float = ATOL) -> None:
+    """The cross-engine contract: distances within RTOL / ``atol``, labels
+    may differ only where distances tie."""
+    np.testing.assert_allclose(d2, d1, rtol=RTOL, atol=atol, err_msg=what)
     mism = l1 != l2
     if mism.any() and not np.allclose(d1[mism], d2[mism], rtol=RTOL,
-                                      atol=ATOL):
+                                      atol=atol):
         raise AssertionError(f"{what}: labels differ at unequal distances")
 
 
@@ -454,8 +494,13 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
     return res
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    """The smoke run; ``--only 17,17b`` builds the kernels and runs only the
+    named large-nc phases (a partial run: no kernels line, no result)."""
     import torch
+    t_command = time.perf_counter()
+    only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
+            else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -495,9 +540,24 @@ def main() -> int:
                 ln.strip() for ln in f if "ptxas" in ln or "error" in ln),
                 flush=True)
 
+    if only:
+        pl, clock = PhaseLaunches(), PhaseClock()
+        if "17" in only:
+            run_scale2(device, SCALE2, pl, [])
+            clock.mark("17")
+        if "17b" in only:
+            run_coarse20(device, COARSE20)
+            clock.mark("17b")
+        print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
+              + json.dumps(pl.by_kernel) + f"; command_s "
+              f"{time.perf_counter() - t_command:.2f}", flush=True)
+        return 0
+
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels = run(device, PRIMARY, SmokeFiles(tmp, PRIMARY))
+    print(f"[time] command_s {time.perf_counter() - t_command:.2f}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -506,9 +566,11 @@ def main() -> int:
     return 0
 
 
-def run(device, p: dict, files: SmokeFiles) -> list:
-    """Phases 3-16 on ``device`` at the sizes ``p`` over the files
-    ``files``; returns the kernel result records."""
+def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
+        s20: dict = COARSE20) -> list:
+    """Phases 3-17b on ``device`` at the sizes ``p`` (phases 17 / 17b:
+    ``s2`` / ``s20``) over the files ``files``; returns the kernel result
+    records."""
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
     from ivfhnsw_tpu_torch.drivers import ivfadc_eval
@@ -712,6 +774,14 @@ def run(device, p: dict, files: SmokeFiles) -> list:
     clock.mark("15")
     run_siftlike(device, p, cfg, gcfg, results, gresults, kernels, pl)
     clock.mark("16")
+    # 17-17b. the large-nc path: the scale2 point, coarse at nc=2^20 (the
+    # earlier phases' cached blocks go back to the card first)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    run_scale2(device, s2, pl, kernels)
+    clock.mark("17")
+    run_coarse20(device, s20)
+    clock.mark("17b")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -1155,8 +1225,9 @@ def run_grouping(device, p: dict, cfg, ds, files: SmokeFiles):
             raise AssertionError(f"grouping main-path gran={gran}: kernel "
                                  "not torch.equal to its plain version")
         topk = lambda: tg.topk_labels(dists, start, st.ids_t, params.k, gran)
-        core = lambda: gi._search_fused(q, params, params.nprobe, nslots,
-                                        gran, "topk", False)
+        core = lambda: gi._search_fused(
+            q, params, params.nprobe, nslots, gran,
+            gi._coarse_for(params, params.nprobe), False)
         ms = device_ms(lambda: tg.grouping_scan_slots(*args))
         plain_ms = device_ms(lambda: tg.grouping_scan_slots_plain(*args),
                              reps=5)
@@ -1945,5 +2016,536 @@ def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
           "10%)", flush=True)
 
 
+
+class MesoCorpus:
+    """The JAX bench's two-level corpus: n_sup = min(2048, nc / 4) supers
+    (N(0, 5^2)), nc mids around them (N(0, 1.5^2)), points mids[a] +
+    (noise * spectrum @ mix) * 0.7 with spectrum i^-1/2. The supers, the
+    mix and (scale2, bench.py:993-1015) the mids come from numpy
+    RandomState(np_seed); with ``mids_seed`` (scale3, bench.py:1078-1120)
+    the mids are drawn on the card from that generator seed. Points are
+    drawn on the card, one torch.Generator seed per call."""
+
+    def __init__(self, device, nc: int, d: int, np_seed: int,
+                 mids_seed: int | None = None):
+        import torch
+        rng = np.random.RandomState(np_seed)
+        n_sup = min(2048, nc // 4)
+        supers = rng.randn(n_sup, d).astype(np.float32) * 5.0
+        if mids_seed is None:
+            mids = (np.repeat(supers, nc // n_sup, axis=0)
+                    + rng.randn(nc, d).astype(np.float32) * 1.5)
+        self.mix = torch.tensor((rng.randn(d, d).astype(np.float32)
+                                 / np.sqrt(d)).astype(np.float32),
+                                device=device)
+        if mids_seed is None:
+            self.mids = torch.tensor(mids, device=device)
+        else:
+            g = torch.Generator(device=device).manual_seed(mids_seed)
+            self.mids = torch.repeat_interleave(
+                torch.tensor(supers, device=device), nc // n_sup, dim=0)
+            self.mids += torch.randn((nc, d), generator=g,
+                                     device=device) * 1.5
+        self.spectrum = torch.tensor(
+            (np.arange(1, d + 1) ** -0.5).astype(np.float32), device=device)
+        self.device, self.nc, self.d = device, nc, d
+
+    def gen(self, seed: int, n: int):
+        """[n, d] f32 points on the card, the same for the same seed."""
+        import torch
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        a = torch.randint(0, self.nc, (n,), generator=g, device=self.device)
+        noise = torch.randn((n, self.d), generator=g, device=self.device)
+        return self.mids[a] + ((noise * self.spectrum) @ self.mix) * 0.7
+
+
+def host_rss_gib() -> tuple:
+    """(current, peak) resident memory of this process, GiB."""
+    import resource
+    with open("/proc/self/status") as f:
+        cur = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return cur / 2 ** 20, peak / 2 ** 20
+
+
+def probe_overlap(probes, exact) -> float:
+    """Mean share of each query's exact probes [B, P] found in ``probes``."""
+    return float((probes[:, :, None] == exact[:, None, :]).any(-1)
+                 .float().mean())
+
+
+def check_ties_only(d_r, p_r, d_e, p_e, what: str, atol: float = ATOL):
+    """Two probe selections of the same queries (ascending distances d_*,
+    ids p_*): distances within RTOL / ``atol``, and a probe in one set only
+    lies at the boundary, within that tolerance of the exact P-th
+    distance."""
+    import torch
+    torch.testing.assert_close(d_r, d_e, rtol=RTOL, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+    miss = ~(p_r[:, :, None] == p_e[:, None, :]).any(-1)
+    kth = d_e[:, -1:].expand_as(d_r)
+    far = miss & ((d_r - kth).abs() > atol + RTOL * kth.abs())
+    if bool(far.any()):
+        raise AssertionError(f"{what}: {int(far.sum())} probes differ away "
+                             "from an f32 tie at the boundary")
+
+
+def lloyd_split(index, learn: "torch.Tensor") -> dict:
+    """One Lloyd pass of ``index.train_centroids`` over ``learn``, split on
+    the card: the hierarchical seeding's seconds, and for one block of
+    ``lloyd_rows(nc)`` rows the score GEMMs alone, the whole assignment
+    sweep (GEMMs, norm adds, top-1 and merge per step) and the segment sums
+    (CUDA events, median). A pass is ``blocks`` such blocks."""
+    import torch
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.ops.distances import assign_top1
+    from ivfhnsw_tpu_torch.ops.kmeans import (_sums_and_counts,
+                                              hierarchical_seed, lloyd_rows)
+    dev, nc, cb = learn.device, index.nc, index._cb()
+    t = time.perf_counter()
+    hierarchical_seed(torch.Generator(device=dev).manual_seed(0), learn, nc)
+    _sync(dev)
+    seed_s = time.perf_counter() - t
+    rows = lloyd_rows(nc)
+    blk, cents, csq = learn[:rows], index.centroids, index.centroid_norms
+
+    def gemms():
+        for o in range(0, nc, cb):
+            blk @ cents[o:o + cb].T
+
+    def sweep():
+        return assign_top1(blk, cents, block=cb, point_sqnorms=csq)
+
+    idx = sweep()[1]
+    r = {"seed_s": seed_s, "rows": rows, "block_c": cb,
+         "blocks": -(-learn.shape[0] // rows), "gemm_ms": device_ms(gemms),
+         "sweep_ms": device_ms(sweep),
+         "sums_ms": device_ms(lambda: _sums_and_counts(blk, idx, nc))}
+    r["pass_s"] = r["blocks"] * (r["sweep_ms"] + r["sums_ms"]) / 1e3
+    return r
+
+
+def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
+    """Phase 17 at the sizes ``s``: build (hierarchical seeding, routed
+    assignment through add_batch_device, exact ground truth), coarse
+    selection (routed overlaps at w = 16, 32, 64 and w = n_super), every
+    coarse mode searched wide and two-phase at both slot widths under the
+    profiled scan budget, and each scan kernel against its plain version on
+    this point's schedule. Returns the numbers the approx decision reads."""
+    import torch
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.ops.routed_coarse import routed_select_ext
+    from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
+    from ivfhnsw_tpu_torch.utils.recall import recall_at_k
+    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
+
+    stages = {}
+
+    def stage(name, fn):
+        return timed(stages, name, fn, device)
+
+    def add_time(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        _sync(device)
+        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t
+        return r
+
+    mem_reset(device)
+    nb, nc, B, P = s["nb"], s["nc"], s["nq"], s["nprobe"]
+    corpus = stage("corpus_setup", lambda: MesoCorpus(device, nc, s["d"], 7))
+    q = corpus.gen(77, B)
+    q_np = q.cpu().numpy()
+    index = IVFADCIndex(IndexConfig(d=s["d"], nc=nc,
+                                    code_size=s["code_size"]), device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    learn = stage("learn_draw", lambda: corpus.gen(78, s["learn"]))
+    stage("centroids", lambda: index.train_centroids(gen, learn,
+                                                     niter=s["niter"]))
+    ll = lloyd_split(index, learn)
+    del learn
+    print(f"[scale2] lloyd split (CUDA events): seed {ll['seed_s']:.3f} s; "
+          f"per block of {ll['rows']} rows x {nc} centroids ({ll['blocks']} "
+          f"a pass, {ll['block_c']} centroids a step): score GEMMs "
+          f"{ll['gemm_ms']:.3f} ms, whole assignment sweep "
+          f"{ll['sweep_ms']:.3f} ms, segment sums {ll['sums_ms']:.3f} ms; "
+          f"a pass {ll['pass_s']:.3f} s, seed + {s['niter']} passes "
+          f"{ll['seed_s'] + s['niter'] * ll['pass_s']:.3f} s against the "
+          f"centroids stage {stages['centroids']:.3f} s", flush=True)
+    pq_learn = corpus.gen(79, s["pq_learn"])
+    stage("pq", lambda: index.train_pq(gen, pq_learn))
+    del pq_learn
+    stage("assigner_setup", lambda: index.enable_fast_assign(
+        w=s["assign_w"], n_super=s["n_super"],
+        generator=torch.Generator(device=device).manual_seed(80)))
+    sample = corpus.gen(81, s["match_sample"])
+    exact_keys = stage("match_exact", lambda: index._assign_device_exact(
+        sample))
+    routed_keys = stage("match_routed",
+                        lambda: index._fast_assigner.assign_device(sample))
+    match = float((routed_keys == exact_keys).mean())
+    mode = "routed" if match >= 0.98 else "exact"
+    if mode == "exact":
+        print(f"[scale2] routed match rate {match:.4f} < 0.98: the build "
+              "assigns exactly", flush=True)
+        index._fast_assigner = None
+    del sample
+
+    best_d = torch.full((B,), float("inf"), device=device)
+    best_i = torch.zeros(B, dtype=torch.int64, device=device)
+    batch, gt_blk = s["batch"], 262_144
+    for bi, off in enumerate(range(0, nb, batch)):
+        blk = add_time("draw", lambda: corpus.gen(1000 + bi,
+                                                  min(batch, nb - off)))
+        ids = np.arange(off, off + blk.shape[0], dtype=np.int32)
+        if bi == 0:       # one batch assigned both ways, for their times
+            add_time("assign_routed_batch0", lambda: index._assign_t(blk))
+            add_time("assign_exact_batch0",
+                     lambda: index._assign_exact_t(blk))
+        add_time("add_batch_device", lambda: index.add_batch_device(blk, ids))
+
+        def gt_step():
+            for g0 in range(0, blk.shape[0], gt_blk):
+                x = blk[g0:g0 + gt_blk]
+                dist = (q @ x.T).mul_(-2.0).add_((x * x).sum(1)[None, :])
+                d, i = dist.min(dim=1)
+                better = d < best_d
+                best_d.copy_(torch.where(better, d, best_d))
+                best_i.copy_(torch.where(better, i + off + g0, best_i))
+        add_time("ground_truth", gt_step)
+        del blk
+    gt = best_i.cpu().numpy()[:, None]
+    index._fast_assigner = None
+    stage("finalize", index.finalize)
+    st = index.store
+    stage("upload", lambda: (st.codes_t, st.ids_t, st.norm_codes_t,
+                             st.list_offsets_t))
+    sizes = st.list_sizes()
+    empty = torch.tensor(sizes == 0, device=device)
+    near = float(torch.linalg.vector_norm(
+        index.centroids[empty] - index.centroids[int(sizes.argmax())],
+        dim=1).max()) if bool(empty.any()) else 0.0
+    rss = host_rss_gib()
+    store_gb = (st.codes.nbytes + st.ids.nbytes + st.norm_codes.nbytes) / 1e9
+    print(f"[scale2] build {nb} x {s['d']} at nc={nc}, corpus bench.py "
+          f"scale2 (RandomState(7) supers/mids/mix, a generator seed per "
+          f"batch): routed match rate {match:.4f} on {s['match_sample']} "
+          f"rows ({mode} assignment), lists mean {sizes.mean():.1f} max "
+          f"{sizes.max()} empty {int((sizes == 0).sum())} (their centroids "
+          f"within {near:.4f} of the largest list's), store "
+          f"{store_gb:.3f} GB; host RSS {rss[0]:.2f} GiB (peak "
+          f"{rss[1]:.2f}), device peak {peak_gib(device)} GiB; stages_s "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+
+    # coarse selection: routed overlaps against exact, w = n_super exact
+    stage("routed_coarse_setup", lambda: index.enable_routed_coarse(
+        generator=torch.Generator(device=device).manual_seed(90)))
+    rc = index._routed_coarse
+    cb = index._coarse_block_for(B)
+    ex_d, ex_p = streaming_topk_l2(q, index.centroids, P, block=cb,
+                                   point_sqnorms=index.centroid_norms)
+    pr = SearchParams(nprobe=P, coarse_mode="routed")
+    overlaps, w_sel = {}, None
+    for w in (16, 32, 64):
+        index.routed_w = w
+        routed, rw = index._routed_for(pr, P)
+        overlaps[rw] = probe_overlap(
+            routed_select_ext(q, *routed, nprobe=P, w=rw)[1], ex_p)
+        if w_sel is None and overlaps[rw] >= OVERLAP_TARGET:
+            w_sel = w
+    w_sel = w_sel or 64
+    ctl = s["ctl"]
+    full_d, full_p = routed_select_ext(q[:ctl], *routed, nprobe=P,
+                                       w=rc.n_super)[:2]
+    # The two orders of one f32 dot product differ by a few ulps of
+    # ||q||^2 + ||c||^2 (~7000 on this corpus: 4.9e-4 an ulp), far above
+    # ATOL beside distances of 2-5: an f32 tie is 16 ulps of that sum.
+    tie_atol = 16 * 2.0 ** -24 * float((q * q).sum(1).max()
+                                       + index.centroid_norms.max())
+    check_ties_only(full_d, full_p, ex_d[:ctl], ex_p[:ctl],
+                    "routed w=n_super vs exact", tie_atol)
+    ap_p = streaming_topk_l2(q, index.centroids, P, block=cb,
+                             point_sqnorms=index.centroid_norms,
+                             approx=True)[1]
+    bn_d, bn_p = streaming_topk_l2(q, index.centroids, P, block=cb,
+                                   point_sqnorms=index.centroid_norms,
+                                   exact_reduce="binned")
+    check_ties_only(bn_d, bn_p, ex_d, ex_p, "binned vs exact")
+    index.routed_w = w_sel
+    coarse_kw = {"exact": {}, "binned": {"exact_reduce": "binned"},
+                 "approx": {"approx": True},
+                 "routed": index._coarse_for(pr, P)}
+    coarse_ms = {m: device_ms(lambda kw=kw: tk.select_probes(
+        q, index.centroids, index.centroid_norms, st.list_offsets_t,
+        nprobe=P, coarse_block=cb, **kw)) for m, kw in coarse_kw.items()}
+    # the routed side table against the store, for every query: each
+    # probe's first row and size (int64: offsets pass 2^24 at this point)
+    off = st.list_offsets_t
+    r_qc, r_p, r_t1, r_lo, r_sz = tk.select_probes(
+        q, index.centroids, index.centroid_norms, off, nprobe=P,
+        coarse_block=cb, **coarse_kw["routed"])
+    if not (torch.equal(r_lo, off[r_p])
+            and torch.equal(r_sz, off[r_p + 1] - r_lo)):
+        raise AssertionError("scale2 routed: the side table's row offsets "
+                             "or sizes differ from the store's")
+    torch.testing.assert_close(
+        r_t1, r_qc - index.centroid_norms[r_p], rtol=RTOL, atol=ATOL,
+        msg=lambda m: f"scale2 routed term1: {m}")
+    print(f"[scale2] routed side table equals the store's offsets and sizes "
+          f"for {B} x {P} probes; row offsets up to {int(r_lo.max())}, "
+          f"{int((r_lo > 2 ** 24).sum())} past 2^24", flush=True)
+    ov = {"approx": probe_overlap(ap_p, ex_p),
+          "binned": probe_overlap(bn_p, ex_p), "routed": overlaps[w_sel]}
+    print(f"[scale2] coarse B={B} nprobe={P}: routed structure {rc.n_super} "
+          f"supers x cap {rc.cap}; probe overlap against exact at w "
+          + json.dumps({str(k): round(v, 4) for k, v in overlaps.items()})
+          + f" -> w={w_sel}; w=n_super ({rc.n_super}) equals exact on "
+          f"{ctl} queries except at f32 ties (atol {tie_atol:.2e}); approx (recall_target 0.95) "
+          f"overlap {ov['approx']:.4f}, binned {ov['binned']:.4f}; "
+          f"selection ms " + json.dumps({k: round(v, 4) for k, v in
+                                         coarse_ms.items()}), flush=True)
+
+    # profiled scan budget per width (the largest demand over the modes)
+    base = dict(k=s["k"], nprobe=P, max_codes=s["max_codes"])
+    modes = ("exact", "binned", "approx", "routed")
+    budget = {}
+    for layout in ("chunk", "quad"):
+        index.scan_layout = layout
+        gran = index.scan_gran()
+        worst = index._scan_slots(SearchParams(**base), P, gran)
+        dem = {m: int(index.scan_slot_demand(
+            q_np, SearchParams(**base, coarse_mode=m), batch=B).max())
+            for m in modes}
+        budget[layout] = max(dem.values()) * gran
+        print(f"[scale2] {layout} ({gran} codes/slot): scan slots worst case "
+              f"{worst}, profiled max demand " + json.dumps(dem), flush=True)
+
+    # every mode, wide and two-phase, both widths, in turns
+    index.engine = "fused"
+    order = [(layout, topk, m) for layout in ("chunk", "quad")
+             for topk in ("wide", "twophase") for m in modes]
+    walls, out = {c: [] for c in order}, {}
+    for layout, topk, m in order + order[::-1]:
+        index.scan_layout, index.scan_topk = layout, topk
+        prm = SearchParams(**base, coarse_mode=m,
+                           scan_budget=budget[layout])
+        index.search(q_np[:64], prm, batch=B)                # warm shapes
+        need = ["adc_scan_slots"] + (["adc_scan_slots_min"]
+                                     if topk == "twophase" else [])
+        t = time.perf_counter()
+        out[layout, topk, m] = pl.counted(
+            "17", index.scan_gran(), need,
+            lambda: index.search(q_np, prm, batch=B),
+            f"scale2 {layout} {topk} {m}")
+        walls[layout, topk, m].append(time.perf_counter() - t)
+    us = {c: 1e6 * min(w) / B for c, w in walls.items()}
+    rec = {}
+    index.scan_layout = "quad"
+    short = {}
+    for m in modes:
+        d0, l0 = out["quad", "wide", m]
+        # a query whose probes hold fewer than k codes returns +inf / -1
+        # past them, as the reference does; every other distance is finite
+        codes = index.scan_inputs(q, SearchParams(
+            **base, coarse_mode=m, scan_budget=budget["quad"]))[5].sum(1)
+        want = np.minimum(codes.cpu().numpy(), s["k"])
+        if d0.shape != (B, s["k"]) or not np.array_equal(
+                np.isfinite(d0).sum(1), want) or (l0[np.isfinite(d0)] < 0
+                                                   ).any():
+            raise AssertionError(f"scale2 {m}: {d0.shape} distances, finite "
+                                 "ones not where the schedule has codes")
+        short[m] = int((want < s["k"]).sum())
+        for c in order:
+            if c[2] == m:
+                assert_same(d0, l0, *out[c], f"scale2 {c} vs quad wide")
+        rec[m] = recall_at_k(l0, gt, ks=(1, 10))
+        print(f"[scale2] coarse {m}: R@1 {rec[m][1]:.4f} R@10 "
+              f"{rec[m][10]:.4f}, {short[m]} queries whose probes hold "
+              f"fewer than k codes; us/query (best of 2, in turns) "
+              + json.dumps({f"{c[0]}/{c[1]}": round(us[c], 3)
+                            for c in order if c[2] == m}), flush=True)
+    assert_same(*out["quad", "wide", "exact"], *out["quad", "wide", "binned"],
+                "scale2 binned vs exact")
+    index.scan_layout, index.scan_topk = "quad", "wide"
+    _, l100 = index.search(q_np, SearchParams(
+        **{**base, "k": 100}, coarse_mode="exact",
+        scan_budget=budget["quad"]), batch=B)
+    r100 = recall_at_k(l100, gt, ks=(100,))[100]
+    # the budget cuts nothing for these queries; the fused engine against
+    # the torch engine on ctl queries, exact coarse, no budget
+    exact = SearchParams(**base, coarse_mode="exact")
+    assert_same(*out["quad", "wide", "exact"], *index.search(
+        q_np, exact, batch=B), "scale2 budgeted vs unbudgeted")
+    d_f, l_f = index.search(q_np[:ctl], exact, batch=B)
+    index.engine = "torch"
+    d_t, l_t = index.search(q_np[:ctl], exact, batch=B)
+    index.engine = "fused"
+    assert_same(d_t, l_t, d_f, l_f, "scale2 fused vs torch engine")
+
+    # routed at w = n_super against exact: with a max_codes that admits
+    # every probe the probe order cannot matter, so each query whose probe
+    # set equals the exact one gets the same results up to f32 ties
+    def probes_of(prm):
+        return tk.select_probes(
+            q[:ctl], index.centroids, index.centroid_norms, off, nprobe=P,
+            coarse_block=index._coarse_block_for(ctl),
+            **index._coarse_for(prm, P))
+
+    index.routed_w = rc.n_super
+    rt, xt = (SearchParams(**base, coarse_mode=m) for m in ("routed",
+                                                            "exact"))
+    _, w_p, _, _, w_sz = probes_of(rt)
+    _, x_p, _, _, x_sz = probes_of(xt)
+    rt.max_codes = xt.max_codes = 1 + int(max(w_sz.sum(1).max(),
+                                              x_sz.sum(1).max()))
+    same = (w_p.sort(1).values == x_p.sort(1).values).all(1).cpu().numpy()
+    if not same.any():
+        raise AssertionError("scale2 routed w=n_super: no query has the "
+                             "exact probe set")
+    d_w, l_w = index.search(q_np[:ctl], rt, batch=B)
+    d_x, l_x = index.search(q_np[:ctl], xt, batch=B)
+    index.routed_w = w_sel
+    assert_same(d_x[same], l_x[same], d_w[same], l_w[same],
+                "scale2 routed w=n_super vs exact search", atol=tie_atol)
+    print(f"[scale2] routed search at w=n_super equals the exact-coarse "
+          f"search on {int(same.sum())} of {ctl} queries (the rest differ "
+          f"only in boundary ties), every probe admitted (max_codes "
+          f"{rt.max_codes}, atol {tie_atol:.2e})", flush=True)
+    print(f"[scale2] R@100 at k=100 (exact coarse) {r100:.4f}; budgeted "
+          f"search equals unbudgeted on {B} queries; fused equals the torch "
+          f"engine on {ctl} queries", flush=True)
+
+    # each scan kernel on this point's schedule for one batch
+    prm = SearchParams(**base, coarse_mode="exact")
+    for layout in ("chunk", "quad"):
+        index.scan_layout = layout
+        gran = index.scan_gran()
+        prm.scan_budget = budget[layout]
+        args = (*index.scan_inputs(q, prm, gran), gran)
+        length = args[5]
+        fill = int(length.sum()) / (B * length.shape[1] * gran)
+        wide = tk.adc_scan_slots(*args)
+        mins = tk.adc_scan_slots_min(*args)
+        for name, got, plain in (
+                (f"adc_scan_slots_gran{gran}", wide, tk.adc_scan_slots_plain),
+                (f"adc_scan_slots_min_gran{gran}", mins,
+                 tk.adc_scan_slots_min_plain)):
+            ref = plain(*args)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"scale2 {name}: kernel not torch.equal "
+                                     "to its plain version")
+            wrapper = (tk.adc_scan_slots_min if "min" in name
+                       else tk.adc_scan_slots)
+            r = {"ms": device_ms(lambda w=wrapper: w(*args)),
+                 "plain_ms": device_ms(lambda p=plain: p(*args), reps=3,
+                                       warmup=1),
+                 "slots": length.shape[1], "lane_fill": fill,
+                 **scan_bound(args, got.numel(), st.code_m + 1,
+                              st.code_m + (2 if "min" in name else 1))}
+            del ref
+            for krec in kernels:
+                if krec["name"] == name:
+                    krec["scale2"] = r
+            print(f"[scale2] {name}: torch.equal to plain on this schedule "
+                  f"(B={B}, {length.shape[1]} slots, lane fill {fill:.3f}): "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}",
+                  flush=True)
+        del args, wide, mins
+    index.scan_topk = "auto"
+    whole = us["quad", "wide", "exact"] * B / 1e3
+    fastest = min(coarse_ms["exact"], coarse_ms["binned"])
+    print(f"[scale2] approx decision: the faster exact reduce "
+          f"{fastest:.4f} ms of a whole {whole:.4f} ms search of {B} queries "
+          f"(quad wide, exact) = {fastest / whole:.3f}; device peak "
+          f"{peak_gib(device)} GiB; stages_s " + json.dumps(
+              {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    return {"coarse_ms": coarse_ms, "whole_ms": whole, "overlap": ov}
+
+
+def run_coarse20(device, s: dict) -> None:
+    """Phase 17b at the sizes ``s``: the scale3 corpus, hierarchical seeding
+    at k = nc over the learn rows (its seconds; the list sizes of those
+    rows under the routed assigner over the seeds, and that assigner's
+    match rate), then exact, binned, approx and routed selection timed
+    against exact with their probe overlaps."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.ops.hierarchical import TwoLevelAssigner
+    from ivfhnsw_tpu_torch.ops.kmeans import hierarchical_seed
+    from ivfhnsw_tpu_torch.ops.routed_coarse import (RoutedCoarse,
+                                                     routed_select_ext)
+
+    stages = {}
+
+    def stage(name, fn):
+        return timed(stages, name, fn, device)
+
+    mem_reset(device)
+    nc, B, P = s["nc"], s["nq"], s["nprobe"]
+    corpus = stage("corpus_setup",
+                   lambda: MesoCorpus(device, nc, s["d"], 11, mids_seed=83))
+    q = corpus.gen(84, B)
+    learn = stage("learn_draw", lambda: corpus.gen(85, s["learn"]))
+    del corpus
+    seeds = stage("hierarchical_seed", lambda: hierarchical_seed(
+        torch.Generator(device=device).manual_seed(0), learn, nc))
+    tla = stage("assigner_setup", lambda: TwoLevelAssigner(
+        seeds, n_super=s["n_super"], w=4,
+        generator=torch.Generator(device=device).manual_seed(90)))
+    keys = stage("assign_learn", lambda: tla.assign_tensor(learn))
+    m = s["match_sample"]
+    match = float((tla._exact(learn[:m]) == keys[:m]).float().mean())
+    counts = torch.bincount(keys, minlength=nc).cpu().numpy()
+    del tla, keys, learn
+    print(f"[coarse20] hierarchical_seed k={nc} over {s['learn']} rows in "
+          f"{stages['hierarchical_seed']:.2f} s; those rows over the seeds "
+          f"(routed assigner, {s['n_super']} supers, w=4, match rate "
+          f"{match:.4f} on {m} rows): lists mean {counts.mean():.2f} std "
+          f"{counts.std():.2f} max {counts.max()} p99 "
+          f"{np.percentile(counts, 99):.0f}, empty share "
+          f"{(counts == 0).mean():.4f}; stages_s " + json.dumps(
+              {k: round(v, 3) for k, v in stages.items()}), flush=True)
+
+    cn = (seeds * seeds).sum(1)
+    offsets = torch.zeros(nc + 1, dtype=torch.int64, device=device)
+    offsets[1:] = torch.tensor(np.cumsum(counts), device=device)
+    rc = stage("routed_coarse_setup", lambda: RoutedCoarse(
+        seeds, generator=torch.Generator(device=device).manual_seed(90)))
+    table = rc.build_table(cn, offsets)
+    cb = 65536          # the fused engine's coarse block at B=1024
+    sel = {"exact": lambda: streaming_topk_l2(q, seeds, P, block=cb,
+                                              point_sqnorms=cn),
+           "binned": lambda: streaming_topk_l2(q, seeds, P, block=cb,
+                                               point_sqnorms=cn,
+                                               exact_reduce="binned"),
+           "approx": lambda: streaming_topk_l2(q, seeds, P, block=cb,
+                                               point_sqnorms=cn,
+                                               approx=True)}
+    for w in (16, 32, 64):
+        sel[f"routed_w{w}"] = (lambda w=w: routed_select_ext(
+            q, rc.supers, rc.super_sqn, table, nprobe=P, w=w)[:2])
+    ex_d, ex_p = sel["exact"]()
+    ms, ov = {}, {}
+    for name, fn in sel.items():
+        d, p = fn()
+        ov[name] = probe_overlap(p, ex_p)
+        if name == "binned":
+            check_ties_only(d, p, ex_d, ex_p, "nc=2^20 binned vs exact")
+        ms[name] = device_ms(fn, reps=5)
+    setup_s = stages["routed_coarse_setup"]
+    print(f"[coarse20] nc={nc} B={B} nprobe={P}, routed structure "
+          f"{rc.n_super} supers x cap {rc.cap} ({setup_s:.2f} s): selection "
+          "ms " + json.dumps(
+              {k: round(v, 4) for k, v in ms.items()}) + "; probe overlap "
+          "against exact " + json.dumps({k: round(v, 4)
+                                         for k, v in ov.items()})
+          + f"; device peak {peak_gib(device)} GiB", flush=True)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -330,6 +330,10 @@ def eval_search(index, cfg: RunConfig, ds, search_fn=None) -> dict:
     the clock stops after the device finished."""
     p = cfg.search
     params = dataclasses.replace(p)
+    if p.coarse_mode == "routed" and index._routed_coarse is None:
+        # the grouping index refuses here, before any k-means
+        log("building routed coarse structure (-coarse_mode routed) ...")
+        index.enable_routed_coarse()
     fn = search_fn or (lambda q: index.search(q, params))
     fn(ds.queries[:min(256, ds.nq)])  # warm-up (kernel build and load)
     w = StopW()

@@ -39,8 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ivfhnsw_tpu_torch.models.ivfadc import (COARSE_BLOCK, IVFADCIndex,
-                                             _round_up)
+from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex, _round_up
 from ivfhnsw_tpu_torch.models.storage import PostingListBuilder
 from ivfhnsw_tpu_torch.ops import adc as adc_ops
 from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as fused
@@ -248,15 +247,15 @@ class IVFADCGroupingIndex(IVFADCIndex):
         gran = gran or self.scan_gran()
         return self._fused_inputs(q, params, nprobe,
                                   self._scan_slots(params, nprobe, gran),
-                                  gran, self._exact_reduce(params))
+                                  gran, self._coarse_for(params, nprobe))
 
     def enable_routed_coarse(self, *args, **kwargs):
-        """Unsupported: the grouping engines take exact probe selection
-        only, so building the routed structure would be wasted work. Fail
-        before that work, not after."""
+        """Unsupported, as in the JAX package: the grouping engines select
+        probes by the sweep only (exact, binned or approx), so building the
+        routed structure would be wasted work. Fail before that work."""
         raise NotImplementedError(
             "routed coarse selection is not wired into the grouping search "
-            "engines; use coarse_mode='exact'")
+            "engines; use coarse_mode='approx' or 'exact'")
 
     # ------------------------------------------------------------------
     # Neighbour-centroid structure
@@ -274,7 +273,7 @@ class IVFADCGroupingIndex(IVFADCIndex):
         for off in range(0, self.nc, batch):
             blk = self.centroids[off:off + batch]
             d_, i_ = streaming_topk_l2(blk, self.centroids, S + 1,
-                                       block=COARSE_BLOCK,
+                                       block=self._cb(),
                                        point_sqnorms=self.centroid_norms)
             rows = torch.arange(off, off + blk.shape[0],
                                 device=self.device)[:, None]
@@ -354,9 +353,11 @@ class IVFADCGroupingIndex(IVFADCIndex):
         self.store = None
 
     def assign_batch_device(self, x_dev: torch.Tensor) -> np.ndarray:
-        """Exact nearest-centroid ids [n] int32 (host) of rows already on
-        this index's device, for both passes of a device-resident build."""
-        return self._assign_device_exact(x_dev)
+        """Nearest-centroid ids [n] int32 (host) of rows already on this
+        index's device, for both passes of a device-resident build: the
+        routed assigner when ``enable_fast_assign`` is on, else exact."""
+        x = self._device_rows(x_dev, "assign_batch_device")
+        return self._assign_t(x).cpu().numpy().astype(np.int32)
 
     def alpha_pass_device(self, x_dev: torch.Tensor, keys,
                           batch: int = ALPHA_BATCH) -> None:
@@ -451,7 +452,7 @@ class IVFADCGroupingIndex(IVFADCIndex):
         n_scanned), "included" the probes the budget admits."""
         store, gv = self.store, self._grouped()
         qc_dists, probes = streaming_topk_l2(
-            q, self.centroids, nprobe, block=COARSE_BLOCK,
+            q, self.centroids, nprobe, block=self._cb(),
             point_sqnorms=self.centroid_norms)
         term1, term2, scan, ssz = query_terms(
             q, qc_dists, probes, self.centroids, self.centroid_norms,
@@ -478,23 +479,23 @@ class IVFADCGroupingIndex(IVFADCIndex):
         return out
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
-                      nprobe: int, nslots: int, gran: int,
-                      exact_reduce: str, two_phase: bool):
+                      nprobe: int, nslots: int, gran: int, coarse: dict,
+                      two_phase: bool):
         """Fused engine: :meth:`_fused_inputs`, then
         ``ops.cuda.grouping_scan.scan_topk`` (wide top-k only: the JAX
         grouping engine has no two-phase top-k)."""
         if two_phase:
             raise NotImplementedError("the grouping engines have no "
                                       "two-phase top-k; use scan_topk='auto'")
-        args = self._fused_inputs(q, params, nprobe, nslots, gran,
-                                  exact_reduce)
+        args = self._fused_inputs(q, params, nprobe, nslots, gran, coarse)
         return fused.scan_topk(args, self.store.ids_t, params.k, gran)
 
     def _fused_inputs(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
-                      exact_reduce: str) -> tuple:
+                      coarse: dict) -> tuple:
         """``ops.cuda.grouping_scan.scan_inputs`` of batch ``q`` over this
-        index."""
+        index, with the coarse arguments ``coarse`` (never routed: the
+        grouping engines refuse it)."""
         store, gv = self.store, self._grouped()
         return fused.scan_inputs(
             q, self.centroids, self.centroid_norms, self.pq.codebooks,
@@ -503,8 +504,8 @@ class IVFADCGroupingIndex(IVFADCIndex):
             self.nn_centroid_idxs, self.alphas, self.inter_centroid_dists,
             params.max_codes, nprobe=nprobe, nslots=nslots, gran=gran,
             coarse_block=self._coarse_block_for(q.shape[0]),
-            do_pruning=params.do_pruning, exact_reduce=exact_reduce,
-            lut_queries=self._rotate(q))
+            do_pruning=params.do_pruning, lut_queries=self._rotate(q),
+            **coarse)
 
     def search_disk(self, queries, params: SearchParams,
                     base_file: io.XvecFile):
@@ -547,7 +548,7 @@ class IVFADCGroupingIndex(IVFADCIndex):
         if params.coarse_mode == "routed":
             raise NotImplementedError(
                 "coarse_mode='routed' is not wired into the grouping search "
-                "engines; use 'exact'")
+                "engines; use 'approx' or 'exact'")
         if self.alphas is None or self.nn_centroid_idxs is None:
             raise RuntimeError("grouping index has no alphas or neighbours: "
                                "build it (alpha_pass, finalize_alphas, "

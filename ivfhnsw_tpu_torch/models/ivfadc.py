@@ -21,7 +21,11 @@ their distances, which made the budget and the codes scanned, from the
 torch engine whatever ``engine`` says) with the ``stats`` counters,
 ``scan_slot_demand`` (profiled slot counts), ``search_precomputed``,
 ``search_per_probe`` and ``search_enn``; the device-resident build
-(``add_batch_device``) and ``release_device``; and the file IO: ``write`` /
+(``add_batch_device``) and ``release_device``; the large-nc path: the
+routed two-level assigner (``enable_fast_assign``), routed coarse selection
+(``enable_routed_coarse``, ``coarse_mode="routed"``), the approximate and
+binned coarse modes and the user ``coarse_block`` ceiling; and the file IO:
+``write`` /
 ``read`` (the reference's ``.index`` format, byte-identical to the JAX
 package's), ``write2`` (the ORCV home dir) and ``add_batch2`` (ORCV output
 records), ``reseed_builder_from_store``, ``save_quantizers`` /
@@ -59,8 +63,13 @@ from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
 # Average codes per list at and above which "auto" picks 1024-code slots
 # (the JAX package's quad/chunk crossover, ivfadc.py:486-500).
 QUAD_MIN_AVG_LIST = 416
-# Centroid rows per coarse sweep step of assignment and the torch engine.
+# Centroid rows per coarse sweep step of assignment, training and the torch
+# engine, unless the user's ``coarse_block`` says otherwise.
 COARSE_BLOCK = 16384
+# Centroid count above which coarse_mode "auto" adopts routed selection
+# when the routing structure exists (the JAX package's rule).
+AUTO_ROUTED_NC = 16384
+COARSE_MODES = ("auto", "exact", "binned", "approx", "routed")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,6 +108,17 @@ class IVFADCIndex:
         # ORCV match thresholds (IndexIVF_HNSW.h:90-91 defaults).
         self.dmatch = 4444.0
         self.dnear = 8888.0
+        # Coarse sweep block (centroid rows per step). None = automatic
+        # (COARSE_BLOCK for assignment and the torch engine, batch-aware
+        # for the fused engine); an int is a ceiling every path honours,
+        # bounding the [batch, block] score buffer.
+        self.coarse_block: int | None = None
+        # The routed two-level assigner (enable_fast_assign) and the routed
+        # coarse structure (enable_routed_coarse), when enabled.
+        self._fast_assigner = None
+        self._routed_coarse = None
+        self._routed_table = None   # (structure, store, fused-engine args)
+        self.routed_w = 16
         self.engine = "auto"        # "torch" | "fused" | "auto" (= fused)
         # Fused-engine slot width: "chunk" = 256 codes, "quad" = 1024, or
         # "auto" by average list size (see _resolve_layout).
@@ -172,9 +192,10 @@ class IVFADCIndex:
     def train_centroids(self, generator: torch.Generator, train_data,
                         niter: int = 20) -> None:
         """Coarse centroid learning on the device (the reference takes the
-        centroids from an external k-means tool, README.md:56,62)."""
+        centroids from an external k-means tool, README.md:56,62);
+        hierarchical seeding above 8192 centroids."""
         cents, _ = kmeans(generator, self._tensor(train_data), self.nc,
-                          niter=niter)
+                          niter=niter, block_c=self._cb())
         self.set_centroids(cents)
 
     def set_centroids(self, centroids) -> None:
@@ -200,22 +221,76 @@ class IVFADCIndex:
     # Assignment / training
     # ------------------------------------------------------------------
 
+    def enable_fast_assign(self, w: int = 8, n_super: int | None = None,
+                           generator: torch.Generator | None = None) -> None:
+        """Switch assignment (``assign``, ``add_batch``,
+        ``add_batch_device``, ``train_pq``) to the routed two-level assigner
+        (``ops.hierarchical.TwoLevelAssigner``): about 1/30 of the exact
+        sweep's FLOPs at large nc. Its accuracy depends on clusters of
+        centroids: check ``_fast_assigner.exact_match_rate`` on a sample
+        before a build adopts it. ``generator`` (default: seed 0 on this
+        index's device) draws its super k-means."""
+        from ivfhnsw_tpu_torch.ops.hierarchical import TwoLevelAssigner
+        if self.centroids is None:
+            raise ValueError("set_centroids first")
+        self._fast_assigner = TwoLevelAssigner(
+            self.centroids, n_super=n_super, w=w, generator=generator)
+
+    def enable_routed_coarse(self, w: int = 16, n_super: int | None = None,
+                             cap_factor: float = 1.5,
+                             generator: torch.Generator | None = None,
+                             cache_path: str | None = None) -> None:
+        """Build the search-time routing structure
+        (``ops.routed_coarse.RoutedCoarse``): the fused engine selects
+        probes among the members of each query's top-``w`` super-clusters
+        when ``coarse_mode`` is "routed", or "auto" with nc > 16384. With
+        ``cache_path`` an existing ``.npz`` (either package's) is loaded,
+        else the structure is built and saved there. Derived data: rebuild
+        it after new centroids; measure its probe overlap against exact
+        selection before adopting it."""
+        from ivfhnsw_tpu_torch.ops.routed_coarse import RoutedCoarse
+        if self.centroids is None:
+            raise ValueError("set_centroids first")
+        if cache_path is not None and os.path.exists(cache_path):
+            z = np.load(cache_path)
+            self._routed_coarse = RoutedCoarse.from_state(
+                self.centroids, z["supers"], z["members"], z["valid"])
+        else:
+            self._routed_coarse = RoutedCoarse(
+                self.centroids, n_super=n_super, cap_factor=cap_factor,
+                generator=generator)
+            if cache_path is not None:
+                self._routed_coarse.save(cache_path)
+        self.routed_w = w
+
+    def _cb(self) -> int:
+        """Coarse block of the fixed-width sweeps (assignment, training,
+        the torch engine): the user's ``coarse_block`` or COARSE_BLOCK."""
+        return self.coarse_block or COARSE_BLOCK
+
     def _assign_t(self, x: torch.Tensor) -> torch.Tensor:
-        """Nearest-centroid ids [n] int64 of device rows x, in batches that
-        keep each [batch, block] score matrix under ~256 MB."""
-        batch = max(1024, min(131072, (1 << 26) // min(COARSE_BLOCK,
-                                                       self.nc)))
+        """Nearest-centroid ids [n] int64 of device rows x: the routed
+        assigner when enabled, else :meth:`_assign_exact_t`."""
+        if self._fast_assigner is not None:
+            return self._fast_assigner.assign_tensor(x)
+        return self._assign_exact_t(x)
+
+    def _assign_exact_t(self, x: torch.Tensor) -> torch.Tensor:
+        """Exact nearest-centroid ids [n] int64 of device rows x, in batches
+        that keep each [batch, block] score matrix under ~256 MB."""
+        block = self._cb()
+        batch = max(1024, min(131072, (1 << 26) // min(block, self.nc)))
         out = torch.empty(x.shape[0], dtype=torch.int64, device=self.device)
         for off in range(0, x.shape[0], batch):
             _, idx = streaming_topk_l2(x[off:off + batch], self.centroids, 1,
-                                       block=COARSE_BLOCK,
+                                       block=block,
                                        point_sqnorms=self.centroid_norms)
             out[off:off + batch] = idx[:, 0]
         return out
 
     def assign(self, x) -> np.ndarray:
-        """Nearest-centroid ids for x [n, d] (IndexIVF_HNSW.cpp:68-72).
-        Returns int32 [n] on the host."""
+        """Nearest-centroid ids for x [n, d] (IndexIVF_HNSW.cpp:68-72), by
+        the routed assigner when enabled. Returns int32 [n] on the host."""
         return self._assign_t(self._tensor(x)).cpu().numpy().astype(np.int32)
 
     def compute_residuals(self, x, keys) -> torch.Tensor:
@@ -310,24 +385,21 @@ class IVFADCIndex:
 
     def _device_rows(self, x_dev: torch.Tensor, what: str) -> torch.Tensor:
         """f32 rows of a tensor already on this index's device, for the
-        device-resident build. Assignment there is the exact sweep; the
-        JAX package's routed assigner is not ported."""
-        if getattr(self, "_fast_assigner", None) is not None:
-            raise NotImplementedError("the routed assigner is not ported; "
-                                      "the device build assigns exactly")
+        device-resident build."""
         return self._on_device(x_dev, what).to(torch.float32)
 
     def _assign_device_exact(self, x_dev: torch.Tensor) -> np.ndarray:
         """Exact nearest-centroid ids [n] int32 (host) of rows already on
-        this index's device."""
+        this index's device, whether or not the routed assigner is on."""
         x = self._device_rows(x_dev, "_assign_device_exact")
-        return self._assign_t(x).cpu().numpy().astype(np.int32)
+        return self._assign_exact_t(x).cpu().numpy().astype(np.int32)
 
     def add_batch_device(self, x_dev: torch.Tensor, xids=None) -> None:
         """Device-resident add_batch: x [n, d] is already on this index's
         device, so nothing is uploaded; only the keys, codes and norm codes
-        go to the host builder. The same assignment and encoding as
-        ``add_batch`` of the same rows, so the store is bit-equal."""
+        go to the host builder. The same assignment (routed when
+        ``enable_fast_assign`` is on) and encoding as ``add_batch`` of the
+        same rows, so the store is bit-equal."""
         self.add_batch(self._device_rows(x_dev, "add_batch_device"), xids)
 
     def add_batch2(self, x, xids, precomputed_idx, eids) -> bytes:
@@ -372,10 +444,12 @@ class IVFADCIndex:
                            store.list_offsets)
 
     def release_device(self) -> None:
-        """Drop the store's device tensors (the quantizers and centroids
-        stay); the next device use uploads them again."""
+        """Drop the store's device tensors and the routed table built over
+        them (the quantizers, centroids and routing structure stay); the
+        next device use uploads them again."""
         if self.store is not None:
             self.store.release_device()
+        self._routed_table = None
 
     def _ensure_store(self) -> PostingListStore:
         if self.store is None:
@@ -443,27 +517,68 @@ class IVFADCIndex:
             nslots = min(nslots, -(-params.scan_budget // gran))
         return max(nslots, 1)
 
-    def _exact_reduce(self, params: SearchParams) -> str:
-        """Coarse selection: only exact modes are ported ("auto" = exact)."""
+    def _routed_for(self, params: SearchParams, nprobe: int):
+        """The routed coarse arguments of a fused search under ``params``:
+        ((supers, super_sqn, table), w) when routing is on, else (None, 0).
+        "routed" needs the structure (ValueError otherwise); "auto" adopts
+        it when it exists and nc > 16384. ``w`` grows until w * cap covers
+        nprobe. The table is built once per store."""
+        self._coarse_approx(params)        # an unknown mode raises here
+        mode, rc = params.coarse_mode, self._routed_coarse
+        if mode == "routed" and rc is None:
+            raise ValueError("coarse_mode='routed' requires "
+                             "enable_routed_coarse() first")
+        if rc is None or mode not in ("routed", "auto") or (
+                mode == "auto" and self.nc <= AUTO_ROUTED_NC):
+            return None, 0
+        w = min(self.routed_w, rc.n_super)
+        if w * rc.cap < nprobe:
+            w = min(-(-nprobe // rc.cap), rc.n_super)
+        store = self._ensure_store()
+        cached = self._routed_table
+        if cached is None or cached[0] is not rc or cached[1] is not store:
+            table = rc.build_table(self.centroid_norms, store.list_offsets_t)
+            cached = self._routed_table = (
+                rc, store, (rc.supers, rc.super_sqn, table))
+        return cached[2], w
+
+    def _coarse_approx(self, params: SearchParams) -> str:
+        """Probe selection without routing: "exact" (a full top-k; "auto"
+        at every nc, divergence D1), "binned" (the exact 3-pass bin-min)
+        or "approx" (``ops.distances.approx_topk_smallest``)."""
         mode = params.coarse_mode
-        if mode in ("auto", "exact"):
-            return "topk"
-        if mode == "binned":
-            return "binned"
-        raise NotImplementedError(f"coarse_mode={mode!r} is not ported yet")
+        if mode not in COARSE_MODES:
+            raise ValueError(f"unknown coarse_mode {mode!r}; expected one of "
+                             f"{'/'.join(COARSE_MODES)}")
+        return mode if mode in ("binned", "approx") else "exact"
+
+    def _coarse_for(self, params: SearchParams, nprobe: int) -> dict:
+        """The fused engine's coarse arguments under ``params``
+        (``ops.cuda.adc_scan.select_probes``' keywords)."""
+        routed, rw = self._routed_for(params, nprobe)
+        if routed is not None:
+            return {"routed": routed, "routed_w": rw}
+        mode = self._coarse_approx(params)
+        return {"exact_reduce": "binned" if mode == "binned" else "topk",
+                "approx": mode == "approx",
+                "recall_target": params.coarse_recall}
 
     def _coarse_block_for(self, B: int) -> int:
         """Coarse sweep block of the fused engine for a batch of B queries:
-        as wide as a ~64 MB [B, block] f32 score block allows."""
+        the user's ``coarse_block`` as a ceiling, else as wide as a ~64 MB
+        [B, block] f32 score block allows."""
+        if self.coarse_block:
+            return min(_round_up(self.nc, 128), self.coarse_block)
         cap = max(4096, ((64 << 20) // max(B, 1)) // 128 * 128)
         return min(_round_up(self.nc, 128), cap)
 
     def _search_torch(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, L: int, trace: bool = False):
         """Portable engine (the JAX ``_search_core``): exact coarse, then
-        :meth:`_scan_window`."""
+        :meth:`_scan_window`. Like the JAX portable engine it selects
+        probes exactly whatever ``coarse_mode`` says."""
         qc_dists, probes = streaming_topk_l2(
-            q, self.centroids, nprobe, block=COARSE_BLOCK,
+            q, self.centroids, nprobe, block=self._cb(),
             point_sqnorms=self.centroid_norms)
         return self._scan_window(q, qc_dists, probes, params.max_codes, L,
                                  params.k, trace)
@@ -491,20 +606,19 @@ class IVFADCIndex:
         return out
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
-                      nprobe: int, nslots: int, gran: int,
-                      exact_reduce: str, two_phase: bool):
+                      nprobe: int, nslots: int, gran: int, coarse: dict,
+                      two_phase: bool):
         """Fused engine: ``ops.cuda.adc_scan.search_core``, as
         :meth:`_fused_inputs` then ``scan_topk``."""
-        args = self._fused_inputs(q, params, nprobe, nslots, gran,
-                                  exact_reduce)
+        args = self._fused_inputs(q, params, nprobe, nslots, gran, coarse)
         return fused.scan_topk(args, self.store.ids_t, params.k, gran,
                                two_phase)
 
     def _fused_inputs(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
-                      exact_reduce: str) -> tuple:
+                      coarse: dict) -> tuple:
         """``ops.cuda.adc_scan.scan_inputs`` of batch ``q`` over this
-        index."""
+        index, with the coarse arguments ``coarse`` (:meth:`_coarse_for`)."""
         store = self.store
         return fused.scan_inputs(
             q, self.centroids, self.centroid_norms, self.pq.codebooks,
@@ -512,7 +626,7 @@ class IVFADCIndex:
             store.list_offsets_t, params.max_codes, nprobe=nprobe,
             nslots=nslots, gran=gran,
             coarse_block=self._coarse_block_for(q.shape[0]),
-            exact_reduce=exact_reduce, lut_queries=self._rotate(q))
+            lut_queries=self._rotate(q), **coarse)
 
     def scan_inputs(self, q: torch.Tensor, params: SearchParams,
                     gran: int | None = None) -> tuple:
@@ -525,7 +639,7 @@ class IVFADCIndex:
         gran = gran or self.scan_gran()
         return self._fused_inputs(q, params, nprobe,
                                   self._scan_slots(params, nprobe, gran),
-                                  gran, self._exact_reduce(params))
+                                  gran, self._coarse_for(params, nprobe))
 
     def _default_params(self) -> SearchParams:
         return SearchParams(k=10, nprobe=self.nprobe,
@@ -541,14 +655,15 @@ class IVFADCIndex:
         self._ensure_store()
         nprobe = min(params.nprobe, self.nc)
         engine = self._resolve_engine()
-        exact_reduce = self._exact_reduce(params)
+        self._coarse_approx(params)        # an unknown mode raises here
         if engine == "torch" or trace:
             L = self._scan_budget(params)
             return lambda q: self._search_torch(q, params, nprobe, L, trace)
         nslots, gran = self._scan_slots(params, nprobe), self.scan_gran()
         two_phase = self._resolve_two_phase()
+        coarse = self._coarse_for(params, nprobe)
         return lambda q: self._search_fused(q, params, nprobe, nslots, gran,
-                                            exact_reduce, two_phase)
+                                            coarse, two_phase)
 
     def _search_batches(self, q_all: torch.Tensor, params: SearchParams,
                         batch: int, trace: bool = False):
@@ -620,22 +735,25 @@ class IVFADCIndex:
         schedule fills under ``params``' nprobe / max_codes rule. Setting
         ``params.scan_budget = max(demand) * scan_gran()`` cuts the slot
         count from the worst case to what these queries use, with the same
-        results for every query whose demand is at most that max. Exact
-        coarse modes only (others raise, as in search)."""
-        exact_reduce = self._exact_reduce(params)
+        results for every query whose demand is at most that max. The
+        probes are those the fused search under ``params`` selects
+        (routed, approx, binned or exact), so a profile never
+        under-provisions a search whose probes hit larger lists."""
         self._ensure_store()
         nprobe = min(params.nprobe or self.nprobe, self.nc)
         gran = self.scan_gran()
+        coarse = self._coarse_for(params, nprobe)
         q_all = self._tensor(queries)
         out = []
         for off in range(0, q_all.shape[0], batch):
             q = q_all[off:off + batch]
             # The fused engine's own coarse step, so that the probes (and
             # the demand) are those its search at this batch size takes.
-            _, probes = streaming_topk_l2(
-                q, self.centroids, nprobe,
-                block=self._coarse_block_for(q.shape[0]),
-                point_sqnorms=self.centroid_norms, exact_reduce=exact_reduce)
+            probes = fused.select_probes(
+                q, self.centroids, self.centroid_norms,
+                self.store.list_offsets_t, nprobe=nprobe,
+                coarse_block=self._coarse_block_for(q.shape[0]),
+                **coarse)[1]
             out.append(self._slot_demand(probes, params, gran))
         return torch.cat(out).cpu().numpy()
 
@@ -674,7 +792,7 @@ class IVFADCIndex:
         q = self._tensor(queries)
         nprobe = min(params.nprobe, self.nc)
         qc_dists, probes = streaming_topk_l2(
-            q, self.centroids, nprobe, block=COARSE_BLOCK,
+            q, self.centroids, nprobe, block=self._cb(),
             point_sqnorms=self.centroid_norms)
         B, mx = q.shape[0], max(store.max_list_size(), 1)
         off = store.list_offsets_t

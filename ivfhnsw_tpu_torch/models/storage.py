@@ -185,11 +185,20 @@ class PostingListBuilder:
             ids = np.zeros((0,), np.int32)
             codes = np.zeros((0, self.code_m), np.uint8)
             ncodes = np.zeros((0,), np.uint8)
-        order = np.argsort(keys, kind="stable")
         sizes = np.bincount(keys, minlength=self.nc)
         offsets = np.zeros(self.nc + 1, np.int32)
         np.cumsum(sizes, out=offsets[1:])
-        return PostingListStore(codes=codes[order], ids=ids[order],
-                                norm_codes=ncodes[order],
-                                list_offsets=offsets, nc=self.nc,
-                                device=device)
+        # A stable sort on the device: the same order as numpy's stable
+        # argsort (a host sort of 134M keys took a minute), and the sorted
+        # arrays stay on the device as the store's tensors.
+        device = torch.device(device)
+        order = torch.sort(torch.from_numpy(keys).to(device),
+                           stable=True).indices
+        dev = {name: torch.from_numpy(a).to(device)[order]
+               for name, a in (("codes", codes), ("ids", ids),
+                               ("norm_codes", ncodes))}
+        store = PostingListStore(
+            **{name: t.cpu().numpy() for name, t in dev.items()},
+            list_offsets=offsets, nc=self.nc, device=device)
+        store._dev.update(dev)
+        return store

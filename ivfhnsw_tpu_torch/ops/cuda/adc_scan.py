@@ -1,10 +1,13 @@
 """Fused IVFADC search engine (``engine="fused"``) around the hand-written
 ADC scan kernels of ``csrc/adc_scan.cu``.
 
-Counterpart of ``ivfhnsw_tpu/ops/pallas/adc_scan.py::pallas_search_core``
-(exact coarse only). The steps:
+Counterpart of ``ivfhnsw_tpu/ops/pallas/adc_scan.py::pallas_search_core``.
+The steps:
 
-1. exact coarse top-``nprobe`` (matmul + ``torch.topk``, ascending);
+1. coarse top-``nprobe``, ascending (:func:`select_probes`): a matmul and
+   an exact (``topk`` or binned) or approximate reduction, or the routed
+   two-level selection (``ops.routed_coarse.routed_select_ext``), whose
+   per-probe list sizes and offsets feed the schedule directly;
 2. LUTs with the -2 factor folded in (``build_luts_ext`` semantics), the
    norm table kept separate;
 3. the ``max_codes`` slot schedule (:func:`probe_schedule`, counterpart of
@@ -35,7 +38,9 @@ import functools
 import torch
 
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+from ivfhnsw_tpu_torch.ops.grouping import probe_budget
 from ivfhnsw_tpu_torch.ops.pq import _pq_ip_luts
+from ivfhnsw_tpu_torch.ops.routed_coarse import routed_select_ext
 from ivfhnsw_tpu_torch.ops.topk import (binned_topk_smallest,
                                        topk_smallest)
 
@@ -70,9 +75,8 @@ def probe_schedule(probes: torch.Tensor, qc_dists: torch.Tensor,
     p = probes.long()
     lo = off[p]
     sizes = off[p + 1] - lo                                   # [B, P]
-    cum_before = torch.cumsum(sizes, dim=1) - sizes
-    included = (cum_before < max_codes) | (max_codes <= 0)
-    start, ln, bias, _ = slot_schedule(lo, sizes, included,
+    start, ln, bias, _ = slot_schedule(lo, sizes,
+                                       probe_budget(sizes, max_codes),
                                        qc_dists - centroid_norms[p], nslots,
                                        gran)
     return start, ln, bias
@@ -270,22 +274,50 @@ def search_core(queries: torch.Tensor, centroids: torch.Tensor,
                 ids: torch.Tensor, norm_codes: torch.Tensor,
                 list_offsets: torch.Tensor, max_codes: int, *, nprobe: int,
                 k: int, nslots: int, gran: int, coarse_block: int,
-                exact_reduce: str = "topk",
                 lut_queries: torch.Tensor | None = None,
-                two_phase: bool = False):
+                two_phase: bool = False, **coarse):
     """End-to-end IVFADC search of a query batch on the fused engine.
     ``lut_queries`` (the OPQ-rotated queries) replaces ``queries`` for the
     LUTs; coarse selection stays in the original space. ``two_phase``
     selects :func:`two_phase_topk` in place of the wide scan + bin-32
     top-k (same results: distances exact, labels may differ at ties).
-    Returns (dists [B, k] f32 ascending, labels [B, k] int64, -1 where the
-    distance is +inf)."""
+    ``coarse`` holds :func:`select_probes`' keywords. Returns (dists
+    [B, k] f32 ascending, labels [B, k] int64, -1 where the distance is
+    +inf)."""
     args = scan_inputs(queries, centroids, centroid_norms, codebooks,
                        norm_centroids, codes, norm_codes, list_offsets,
                        max_codes, nprobe=nprobe, nslots=nslots, gran=gran,
-                       coarse_block=coarse_block, exact_reduce=exact_reduce,
-                       lut_queries=lut_queries)
+                       coarse_block=coarse_block, lut_queries=lut_queries,
+                       **coarse)
     return scan_topk(args, ids, k, gran, two_phase)
+
+
+def select_probes(queries: torch.Tensor, centroids: torch.Tensor,
+                  centroid_norms: torch.Tensor, list_offsets: torch.Tensor, *,
+                  nprobe: int, coarse_block: int, exact_reduce: str = "topk",
+                  approx: bool = False, recall_target: float = 0.95,
+                  routed: tuple | None = None, routed_w: int = 0):
+    """Step 1 of :func:`search_core`: each query's ``nprobe`` probes in
+    ascending coarse distance, by the streaming sweep
+    (``ops.distances.streaming_topk_l2`` with ``exact_reduce``, ``approx``
+    and ``recall_target``) or, when ``routed`` = (supers, super_sqn, table)
+    is given, by ``routed_select_ext`` over ``routed_w`` supers (the
+    counterpart of the JAX ``_probe_schedule_fields`` path: sizes and row
+    offsets come with the probes, no per-probe gather). Returns (qc_dists
+    f32, probes int64, term1 = qc_dist - ||c||^2 f32, lo int64 = first row
+    of the probe's list, sizes int64), all [B, nprobe]."""
+    if routed is not None:
+        qc_dists, probes, term1, sizes, lo = routed_select_ext(
+            queries, *routed, nprobe=nprobe, w=routed_w)
+        return qc_dists, probes, term1, lo, sizes
+    qc_dists, probes = streaming_topk_l2(
+        queries, centroids, nprobe, block=coarse_block,
+        point_sqnorms=centroid_norms, exact_reduce=exact_reduce,
+        approx=approx, recall_target=recall_target)
+    off = list_offsets.long()
+    lo = off[probes]
+    return (qc_dists, probes, qc_dists - centroid_norms[probes], lo,
+            off[probes + 1] - lo)
 
 
 def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
@@ -293,17 +325,17 @@ def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
                 norm_centroids: torch.Tensor, codes: torch.Tensor,
                 norm_codes: torch.Tensor, list_offsets: torch.Tensor,
                 max_codes: int, *, nprobe: int, nslots: int, gran: int,
-                coarse_block: int, exact_reduce: str = "topk",
-                lut_queries: torch.Tensor | None = None) -> tuple:
+                coarse_block: int, lut_queries: torch.Tensor | None = None,
+                **coarse) -> tuple:
     """Steps 1-3 of :func:`search_core` (coarse, schedule, LUTs): the scan
     inputs (lut, norm_tab, codes, norm_codes, start, length, bias) in
-    :func:`adc_scan_slots`' order."""
-    qc_dists, probes = streaming_topk_l2(
-        queries, centroids, nprobe, block=coarse_block,
-        point_sqnorms=centroid_norms, exact_reduce=exact_reduce)
-    start, length, bias = probe_schedule(probes, qc_dists, centroid_norms,
-                                         list_offsets, max_codes, nslots,
-                                         gran)
+    :func:`adc_scan_slots`' order. ``coarse`` holds
+    :func:`select_probes`' keywords."""
+    _, _, term1, lo, sizes = select_probes(
+        queries, centroids, centroid_norms, list_offsets, nprobe=nprobe,
+        coarse_block=coarse_block, **coarse)
+    start, length, bias, _ = slot_schedule(
+        lo, sizes, probe_budget(sizes, max_codes), term1, nslots, gran)
     lut = build_luts(queries if lut_queries is None else lut_queries,
                      codebooks)
     return (lut, norm_centroids, codes, norm_codes, start, length, bias)

@@ -199,7 +199,8 @@ def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
                 nn_idxs: torch.Tensor, alphas: torch.Tensor,
                 inter_dists: torch.Tensor, max_codes: int, *, nprobe: int,
                 nslots: int, gran: int, coarse_block: int, do_pruning: bool,
-                exact_reduce: str = "topk",
+                exact_reduce: str = "topk", approx: bool = False,
+                recall_target: float = 0.95,
                 lut_queries: torch.Tensor | None = None) -> tuple:
     """Steps 1-4 of the fused Grouping(+Pruning) search of a query batch
     (coarse, grouping terms, schedule, LUTs): the scan inputs (lut,
@@ -209,7 +210,8 @@ def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
     grouping terms stay in the original space."""
     qc_dists, probes = streaming_topk_l2(
         queries, centroids, nprobe, block=coarse_block,
-        point_sqnorms=centroid_norms, exact_reduce=exact_reduce)
+        point_sqnorms=centroid_norms, exact_reduce=exact_reduce,
+        approx=approx, recall_target=recall_target)
     term1, term2, scan, ssz = query_terms(
         queries, qc_dists, probes, centroids, centroid_norms, nn_idxs,
         alphas, inter_dists, sub_sizes, max_codes, do_pruning)

@@ -6,11 +6,17 @@ that serves as the coarse quantizer. Counterpart of
 matmul, and top-k over a large point set streams point blocks through a
 running top-k merge instead of materializing [B, n] scores.
 
-The approximate selection of the JAX package (``approx=True``, which calls
-``jax.lax.approx_min_k``) is not ported; only the exact reductions are.
+``approx=True`` stands in for the JAX package's ``jax.lax.approx_min_k``
+(an XLA reduction, not a Pallas kernel, with no torch counterpart): the
+bucketed partial reduction that op performs, :func:`approx_topk_smallest`.
+Decided on an H100: at nc=2^17, 1024 queries, nprobe=128, the faster exact
+reduce took 0.54 of the whole search, more than the third at which
+"approx" would have become an alias of it (PERF.md, the approx decision).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -42,17 +48,57 @@ def l2sqr_pairwise(x: torch.Tensor, y: torch.Tensor,
     return x_sqnorm.unsqueeze(-1) - 2.0 * ip + y_sqnorm.unsqueeze(-2)
 
 
+def inner_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x [n, d] @ y [m, d]^T -> [n, m], in full float32 (TF32 is off)."""
+    return x @ y.transpose(-1, -2)
+
+
+def approx_topk_smallest(x: torch.Tensor, k: int,
+                         recall_target: float = 0.95):
+    """Approximate k smallest along the last axis, ascending: the bucketed
+    partial reduction of ``jax.lax.approx_min_k``. Lane i falls in bucket
+    i mod L (strided, so neighbours with nearby ids, such as centroids
+    seeded super by super, spread over buckets), each bucket keeps its
+    minimum, and an exact top-k runs over the L minima. Two of the true k smallest in one bucket lose one
+    of them; with L >= (k - 1) / (2 (1 - recall_target)) buckets the
+    expected share kept is at least ``recall_target`` (the TPU-KNN bound
+    that approx_min_k sizes its buckets by). Falls back to the exact
+    :func:`topk_smallest` when that leaves fewer than 2 lanes per bucket.
+    Returns (values, indices int64)."""
+    n = x.shape[-1]
+    nbuck = max(k, math.ceil((k - 1) / max(2.0 * (1.0 - recall_target),
+                                           1e-9)))
+    width = -(-n // nbuck)
+    if width < 2:
+        return topk_smallest(x, k)
+    nbuck = -(-n // width)
+    if nbuck * width != n:
+        pad = torch.full(x.shape[:-1] + (nbuck * width - n,), float("inf"),
+                         dtype=x.dtype, device=x.device)
+        x = torch.cat([x, pad], dim=-1)
+    bmin, barg = x.reshape(x.shape[:-1] + (width, nbuck)).min(dim=-2)
+    best, bsel = topk_smallest(bmin, k)
+    sel = torch.gather(barg, -1, bsel) * nbuck + bsel
+    return best, sel.clamp_max(n - 1)
+
+
 def streaming_topk_l2(queries: torch.Tensor, points: torch.Tensor, k: int,
                       block: int = 65536,
                       point_sqnorms: torch.Tensor | None = None,
-                      exact_reduce: str = "topk"):
+                      exact_reduce: str = "topk", approx: bool = False,
+                      recall_target: float = 0.95):
     """k nearest points (squared L2) for each query, streaming ``points`` in
     blocks of ``block`` rows with a running top-k merge. Returns
     (dists [B, k] f32, idxs [B, k] int64) sorted ascending.
 
     exact_reduce="binned" selects within each block by the 3-pass bin-min
     reduction (:func:`binned_topk_smallest`): the same result up to the
-    order of equal distances."""
+    order of equal distances. approx=True selects within each block by
+    :func:`approx_topk_smallest` at ``recall_target`` (the JAX package's
+    approx_min_k); the merge across blocks stays exact.
+
+    The [B, block] score block is formed in place, in the order
+    (||q||^2 - 2 q.p) + ||p||^2, so a step holds one such block."""
     if exact_reduce not in ("topk", "binned"):
         raise ValueError(f"exact_reduce must be 'topk' or 'binned', "
                          f"got {exact_reduce!r}")
@@ -67,10 +113,12 @@ def streaming_topk_l2(queries: torch.Tensor, points: torch.Tensor, k: int,
                         device=queries.device)
     best_i = torch.zeros((B, k), dtype=torch.int64, device=queries.device)
     for s in range(0, n, block):
-        ip = queries @ points[s:s + block].T
-        dists = (q_sqnorm[:, None] - 2.0 * ip
-                 + point_sqnorms[None, s:s + block])
-        if exact_reduce == "binned":
+        # -2 * ip + ||q||^2 is ||q||^2 - 2 * ip bit for bit
+        dists = (queries @ points[s:s + block].T).mul_(-2.0)
+        dists.add_(q_sqnorm[:, None]).add_(point_sqnorms[None, s:s + block])
+        if approx and kk < dists.shape[1]:
+            blk_d, blk_j = approx_topk_smallest(dists, kk, recall_target)
+        elif exact_reduce == "binned":
             blk_d, blk_j = binned_topk_smallest(dists, kk, bin_size=32)
         else:
             blk_d, blk_j = topk_smallest(dists, kk)

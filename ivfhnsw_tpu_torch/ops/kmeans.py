@@ -14,12 +14,14 @@ Cluster sums go through :func:`ivfhnsw_tpu_torch.ops.segment.segment_sum`,
 whose order of summation is fixed by the data, so one generator seed gives
 the same centroids, bit for bit, on every run on the card.
 
-Only the k <= 8192 seeding (k-means++) is ported; ``hierarchical_seed``,
-which the JAX package uses above 8192 centroids, is not yet.
+Seeding is k-means++ up to 8192 centroids and :func:`hierarchical_seed`
+above (coarse centroids at 2^17-2^20, where the k-step ++ loop is too
+long), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ivfhnsw_tpu_torch.ops.distances import assign_top1, l2sqr_pairwise
@@ -89,9 +91,11 @@ def _sums_and_counts(x: torch.Tensor, idx: torch.Tensor, k: int):
     return acc[:, :-1], acc[:, -1]
 
 
-def _lloyd_pass(data: torch.Tensor, centroids: torch.Tensor, block_n: int):
-    """One assignment pass over data [n, d] in blocks of ``block_n`` rows.
-    Returns (sums [k, d], counts [k], sse)."""
+def _lloyd_pass(data: torch.Tensor, centroids: torch.Tensor, block_n: int,
+                block_c: int = 65536):
+    """One assignment pass over data [n, d] in blocks of ``block_n`` rows,
+    ``block_c`` centroids per sweep step. Returns (sums [k, d], counts [k],
+    sse)."""
     k, d = centroids.shape
     dev = data.device
     sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
@@ -100,7 +104,8 @@ def _lloyd_pass(data: torch.Tensor, centroids: torch.Tensor, block_n: int):
     csq = (centroids * centroids).sum(-1)
     for s in range(0, data.shape[0], block_n):
         blk = data[s:s + block_n]
-        dist, idx = assign_top1(blk, centroids, point_sqnorms=csq)
+        dist, idx = assign_top1(blk, centroids, block=block_c,
+                                point_sqnorms=csq)
         blk_sums, blk_counts = _sums_and_counts(blk, idx, k)
         sums += blk_sums
         counts += blk_counts
@@ -108,28 +113,111 @@ def _lloyd_pass(data: torch.Tensor, centroids: torch.Tensor, block_n: int):
     return sums, counts, sse
 
 
+def _quotas(counts: np.ndarray, k: int) -> np.ndarray:
+    """Seeds per super-cluster: largest-remainder proportional quotas of k
+    over the pool counts, capped by availability, any shortfall given to
+    the clusters with the most headroom (the JAX package's arithmetic,
+    ``ivfhnsw_tpu/ops/kmeans.py:103-122``). The quotas sum to k unless the
+    pool holds fewer than k rows."""
+    exact = k * counts / max(counts.sum(), 1)
+    quota = np.floor(exact).astype(np.int64)
+    rem = k - int(quota.sum())
+    if rem > 0:
+        order = np.argsort(-(exact - quota))
+        quota[order[:rem]] += 1
+    quota = np.minimum(quota, counts)
+    short = k - int(quota.sum())
+    if short > 0:
+        head = counts - quota
+        for s in np.argsort(-head):
+            take = min(short, int(head[s]))
+            quota[s] += take
+            short -= take
+            if short == 0:
+                break
+    return quota
+
+
+def hierarchical_seed(generator: torch.Generator, data: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """Two-level ++-style seeding for large k (the JAX package's
+    ``hierarchical_seed``):
+
+    1. k_sup = clip(k // 256, 1, 8192) super-centroids, k-means++ and 4
+       Lloyd rounds on a subsample of max(32 k_sup, 16384) rows;
+    2. a pool of max(8 k, that subsample) rows assigned to the supers;
+    3. each super's proportional quota of seeds (:func:`_quotas`), drawn
+       uniformly without replacement from its pool members; a pool smaller
+       than k is topped up with random rows.
+
+    Dense regions get many seeds, so no seed starts responsible for a huge
+    slab of points. data [n, d] lives on the device that does the work;
+    the permutations and draws come from ``generator``. Returns seeds
+    [k, d] f32, grouped by super-cluster."""
+    data = data.float()
+    n, dev = data.shape[0], data.device
+    k_sup = int(np.clip(k // 256, 1, 8192))
+    sub_n = min(n, max(32 * k_sup, 16384))
+    sub = data[torch.randperm(n, generator=generator, device=dev)[:sub_n]]
+    sup = kmeanspp_init(generator, sub, k_sup)
+    for _ in range(4):
+        _, idx = assign_top1(sub, sup)
+        sums, counts = _sums_and_counts(sub, idx, k_sup)
+        sup = _update_with_split(sums, counts, sup)
+
+    pool_n = min(n, max(8 * k, sub_n))
+    pool = torch.randperm(n, generator=generator, device=dev)[:pool_n]
+    step = max(1024, (1 << 28) // k_sup)     # [step, k_sup] scores <= 1 GB
+    members = torch.cat([assign_top1(data[pool[o:o + step]], sup)[1]
+                         for o in range(0, pool_n, step)])
+    counts = torch.bincount(members, minlength=k_sup).cpu().numpy()
+    quota = _quotas(counts.astype(np.int64), k)
+
+    # Uniform draws within each super: order the pool by (super, a random
+    # key) and keep the first quota[s] rows of super s.
+    shuffle = torch.argsort(torch.rand(pool_n, generator=generator,
+                                       device=dev))
+    order = shuffle[torch.sort(members[shuffle], stable=True).indices]
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                          device=dev)
+    sup_of = members[order]
+    rank = torch.arange(pool_n, device=dev) - starts[sup_of]
+    keep = rank < torch.tensor(quota, device=dev)[sup_of]
+    seeds = data[pool[order[keep]]]
+    short = k - seeds.shape[0]
+    if short > 0:
+        extra = torch.randperm(n, generator=generator, device=dev)[:short]
+        seeds = torch.cat([seeds, data[extra]])
+    return seeds
+
+
+def lloyd_rows(k: int) -> int:
+    """Data rows per assignment step of :func:`kmeans`: caps the [rows, k]
+    f32 scores of one pass over the centroids at ~1 GB."""
+    return min(131072, max(1024, (1 << 28) // _round_up(k, 128)))
+
+
 def kmeans(generator: torch.Generator, data: torch.Tensor, k: int,
-           niter: int = 25):
+           niter: int = 25, block_c: int = 65536):
     """Streaming Lloyd's k-means on data [n, d] (a tensor on the device that
-    does the work). Returns (centroids [k, d] f32, final mean squared
-    error)."""
+    does the work), ``block_c`` centroids per assignment sweep step.
+    Returns (centroids [k, d] f32, final mean squared error)."""
     data = data.float()
     n, d = data.shape
     if n < k:
         raise ValueError(f"kmeans: n={n} < k={k}")
+    block_n = lloyd_rows(k)
     if k > KMEANSPP_MAX_K:
-        raise NotImplementedError(
-            f"kmeans: k={k} > {KMEANSPP_MAX_K} needs hierarchical seeding, "
-            "which is not ported yet")
-    # Data rows per assignment step: caps the [rows, k] f32 scores at ~1 GB.
-    block_n = min(131072, max(1024, (1 << 28) // _round_up(k, 128)))
-    # k-means++ on a subsample of >= 32 points per cluster.
-    sub_n = min(n, max(32 * k, 16384))
-    perm = torch.randperm(n, generator=generator, device=data.device)[:sub_n]
-    centroids = kmeanspp_init(generator, data[perm], k)
+        centroids = hierarchical_seed(generator, data, k)
+    else:
+        # k-means++ on a subsample of >= 32 points per cluster.
+        sub_n = min(n, max(32 * k, 16384))
+        perm = torch.randperm(n, generator=generator,
+                              device=data.device)[:sub_n]
+        centroids = kmeanspp_init(generator, data[perm], k)
     sse = torch.zeros(())
     for _ in range(niter):
-        sums, counts, sse = _lloyd_pass(data, centroids, block_n)
+        sums, counts, sse = _lloyd_pass(data, centroids, block_n, block_c)
         centroids = _update_with_split(sums, counts, centroids)
     return centroids, float(sse) / n
 

@@ -68,9 +68,11 @@ class SearchParams:
     # Padded scan length per query (lanes). None -> derived from max_codes
     # and the longest posting list.
     scan_budget: Optional[int] = None
-    # Coarse probe selection, exact modes only: "auto" / "exact" (full
-    # top-k) and "binned" (the exact 3-pass bin-min); "approx" and "routed"
-    # are not ported and raise.
+    # Coarse probe selection of the fused engine: "exact" (full top-k),
+    # "binned" (the exact 3-pass bin-min), "approx" (bucketed partial
+    # reduction at coarse_recall), "routed" (two-level, needs
+    # enable_routed_coarse) or "auto" (routed when the structure exists
+    # and nc > 16384, else exact).
     coarse_mode: str = "auto"
     coarse_recall: float = 0.95
 

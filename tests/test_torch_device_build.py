@@ -242,13 +242,18 @@ def test_device_entry_points_take_tensors_on_the_index_device(kind):
         t.add_batch_device(base[:10])
     with pytest.raises(TypeError):
         t._assign_device_exact(base[:10])
-    t._fast_assigner = object()
-    with pytest.raises(NotImplementedError):
-        t.add_batch_device(torch.from_numpy(base[:10]))
+    # the routed assigner takes the device build too (its parity with JAX:
+    # tests/test_torch_hierarchical.py); host arrays stay refused
+    t.enable_fast_assign(w=4, n_super=8)
+    with pytest.raises(TypeError):
+        t.add_batch_device(base[:10])
     if kind == "grouping":
-        with pytest.raises(NotImplementedError):
-            t.assign_batch_device(torch.from_numpy(base[:10]))
-        del t._fast_assigner
+        with pytest.raises(TypeError):
+            t.assign_batch_device(base[:10])
+        np.testing.assert_array_equal(
+            t.assign_batch_device(torch.from_numpy(base[:200])),
+            t._fast_assigner.assign(base[:200]))
+        t._fast_assigner = None
         with pytest.raises(TypeError):
             t.alpha_pass_device(base[:10], np.zeros(10, np.int32))
         with pytest.raises(RuntimeError):     # alphas not learned yet

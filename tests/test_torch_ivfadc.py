@@ -271,7 +271,9 @@ def test_unported_options_raise(built, bad, tmp_path):
     elif bad == "layout":
         t.scan_layout = "tiles"
     else:
-        p.coarse_mode = "approx"
+        # every coarse mode of the JAX package is ported; a name outside
+        # them is refused
+        p.coarse_mode = "fuzzy"
     with pytest.raises((ValueError, NotImplementedError)):
         t.search(queries, p)
 

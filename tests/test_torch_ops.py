@@ -221,8 +221,11 @@ def test_update_with_split_matches_jax():
 
 
 def test_kmeans_rejects_hierarchical_range():
-    with pytest.raises(NotImplementedError):
-        tk.kmeans(torch.Generator(), torch.zeros(9000, 2), 8193)
+    """Above 8192 centroids k-means takes the hierarchical seed (its tests:
+    tests/test_torch_large_nc.py, test_torch_hierarchical.py); fewer rows
+    than centroids is still refused."""
+    with pytest.raises(ValueError):
+        tk.kmeans(torch.Generator(), torch.zeros(8000, 2), 8193)
 
 
 def test_apply_rotation_matches_jax():

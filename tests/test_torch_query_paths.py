@@ -134,9 +134,21 @@ def test_profiled_budget_keeps_results(built, gbuilt, index):
 
 @pytest.mark.parametrize("mode", ["approx", "routed"])
 def test_scan_slot_demand_refuses_inexact_coarse(built, mode):
+    """The demand follows the coarse path of the search under params (the
+    JAX rule, ivfhnsw_tpu/models/ivfadc.py:536-570): "routed" without the
+    routing structure is refused, as its search is; "approx" profiles the
+    probes its search selects (tests/test_torch_large_nc.py holds both
+    against JAX's)."""
     _, t, queries = built
-    with pytest.raises(NotImplementedError):
-        t.scan_slot_demand(queries, SearchParams(k=5, coarse_mode=mode))
+    p = SearchParams(k=5, nprobe=8, max_codes=0, coarse_mode=mode)
+    if mode == "routed":
+        with pytest.raises(ValueError, match="enable_routed_coarse"):
+            t.scan_slot_demand(queries, p)
+        return
+    exact = t.scan_slot_demand(queries, SearchParams(k=5, nprobe=8,
+                                                     max_codes=0))
+    dem = t.scan_slot_demand(queries, p)
+    assert dem.shape == exact.shape and (dem > 0).all()
 
 
 def _finite_labels_same(d1, l1, d2, l2):

@@ -164,9 +164,19 @@ def test_search_enn_counts_its_queries(built):
 
 
 def test_trace_rejects_unported_coarse_modes(built):
+    """Every coarse mode of the JAX package is ported. A traced search runs
+    the torch engine, whose probes are exact whatever coarse_mode says (as
+    the JAX portable engine's), so "approx" traces as "exact"; a mode
+    outside the known ones is refused."""
     kind, _, t, queries = built
-    with pytest.raises(NotImplementedError):
-        t.search(queries, SearchParams(coarse_mode="approx"), trace=True)
+    with pytest.raises(ValueError):
+        t.search(queries, SearchParams(coarse_mode="fuzzy"), trace=True)
+    d1, l1, tr1 = t.search(queries, SearchParams(coarse_mode="approx"),
+                           trace=True)
+    d2, l2, tr2 = t.search(queries, SearchParams(coarse_mode="exact"),
+                           trace=True)
+    np.testing.assert_array_equal(l1, l2)
+    np.testing.assert_array_equal(tr1["probes"], tr2["probes"])
 
 
 def test_stage_timer_and_counters_report_as_jax():
