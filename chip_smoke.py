@@ -126,6 +126,26 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    timed, with their probe overlaps against exact ([coarse20] lines).
    ``python3 chip_smoke.py --only 17,17b`` builds the kernels and runs
    just these two phases (a partial run: it prints no result line).
+18. the sharded paths (ivfhnsw_tpu_torch/parallel/), [sharded] lines:
+   18a: phase 17's index over 8 shards on the one card (LocalShards),
+   searched wide and two-phase at both slot widths, in turns with the
+   single index under phase 17's profiled budget; results equal on every
+   query whose sharded probe list equals the single index's (the others
+   counted and shown to differ only at f32 ties); µs/query of both, each
+   shard's slots (its own demand), the coarse step of both, device peak;
+   the scan kernels on the busiest shard's schedule torch.equal to plain;
+   18b: the same index as one rank of a single-rank NCCL process group
+   (DistributedShards), equal to the single index; 18c: phase 8's flagship
+   over 8 shards, pruning off and on, both widths, against phase 8's
+   single index, pruning flips counted and shown at the threshold, the
+   grouping kernel torch.equal to plain on a shard's schedule; 18d: the
+   streamed build (StreamedIndexBuild over 8 shards, batches of 262,144)
+   of phase 4's 2M rows, stopped after half, torn bytes appended past the
+   cursor, resumed; then two hosts' slices built apart and merged; each
+   store equal to phase 4's up to counted near-ties; rows/s, finalize
+   seconds; 18e: the 8-shard primary index through save_sharded /
+   load_sharded, searching bit-equal after the round trip.
+   ``python3 chip_smoke.py --only 17,18`` runs phases 17 and 18a-18b.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -495,8 +515,9 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b`` builds the kernels and runs only the
-    named large-nc phases (a partial run: no kernels line, no result)."""
+    """The smoke run; ``--only 17,17b,18`` builds the kernels and runs only
+    the named large-nc phases (18: its scale2 part, 18a-18b, after phase
+    17; a partial run: no kernels line, no result)."""
     import torch
     t_command = time.perf_counter()
     only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
@@ -542,12 +563,15 @@ def main(argv: list) -> int:
 
     if only:
         pl, clock = PhaseLaunches(), PhaseClock()
-        if "17" in only:
-            run_scale2(device, SCALE2, pl, [])
+        if "17" in only or "18" in only:       # 18 shards phase 17's index
+            s2res = run_scale2(device, SCALE2, pl, [])
             clock.mark("17")
         if "17b" in only:
             run_coarse20(device, COARSE20)
             clock.mark("17b")
+        if "18" in only:
+            run_sharded_scale2(device, s2res, pl, [])
+            clock.mark("18a-b")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -778,10 +802,19 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
     # earlier phases' cached blocks go back to the card first)
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    run_scale2(device, s2, pl, kernels)
+    s2res = run_scale2(device, s2, pl, kernels)
     clock.mark("17")
     run_coarse20(device, s20)
     clock.mark("17b")
+    # 18. the sharded paths: scale2 over 8 local shards and one NCCL rank,
+    # then the flagship, the streamed build and the sharded checkpoint
+    run_sharded_scale2(device, s2res, pl, kernels)
+    del s2res
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    clock.mark("18a-b")
+    run_sharded_primary(device, cfg, ds, index, gi, pl, kernels)
+    clock.mark("18c-e")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -2464,7 +2497,9 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
           f"(quad wide, exact) = {fastest / whole:.3f}; device peak "
           f"{peak_gib(device)} GiB; stages_s " + json.dumps(
               {k: round(v, 3) for k, v in stages.items()}), flush=True)
-    return {"coarse_ms": coarse_ms, "whole_ms": whole, "overlap": ov}
+    return {"coarse_ms": coarse_ms, "whole_ms": whole, "overlap": ov,
+            "index": index, "queries": q_np, "gt": gt, "budget": budget,
+            "sizes": s}
 
 
 def run_coarse20(device, s: dict) -> None:
@@ -2545,6 +2580,469 @@ def run_coarse20(device, s: dict) -> None:
           "against exact " + json.dumps({k: round(v, 4)
                                          for k, v in ov.items()})
           + f"; device peak {peak_gib(device)} GiB", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the sharded paths
+# ---------------------------------------------------------------------------
+
+def tie_atol(q, index) -> float:
+    """16 ulps of the largest ||q||^2 + ||c||^2: two orders of one f32
+    distance differ by a few ulps of that sum, so distances within it are
+    an f32 tie (as phase 17 allows)."""
+    return 16 * 2.0 ** -24 * float((q * q).sum(1).max()
+                                   + index.centroid_norms.max())
+
+
+def probe_agreement(sharded, index, q, nprobe: int, what: str):
+    """Each query's probe list from the sharded coarse step (every shard's
+    block, gathered and merged) against the single index's fused coarse
+    step: [B] bool (numpy), True where the two lists are equal in order.
+    A query whose lists differ must differ only at f32 ties."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.parallel.sharded import global_probes
+    d_s, p_s = global_probes(sharded.group, sharded.shards, q, nprobe)
+    d_1, p_1 = streaming_topk_l2(q, index.centroids, nprobe,
+                                 block=index._coarse_block_for(q.shape[0]),
+                                 point_sqnorms=index.centroid_norms)
+    same = (p_s.to(p_1.device) == p_1).all(1)
+    diff = ~same
+    if bool(diff.any()):
+        check_ties_only(d_s.to(d_1.device)[diff], p_s.to(p_1.device)[diff],
+                        d_1[diff], p_1[diff], what, tie_atol(q, index))
+    return same.cpu().numpy()
+
+
+def run_sharded_scale2(device, s2: dict, pl: PhaseLaunches,
+                       kernels: list) -> None:
+    """Phases 18a-18b over phase 17's index ``s2["index"]``."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.parallel import (DistributedShards,
+                                            ShardedIVFADC, make_mesh)
+    from ivfhnsw_tpu_torch.parallel.sharded import global_probes
+    from ivfhnsw_tpu_torch.utils.config import SearchParams
+    from ivfhnsw_tpu_torch.utils.recall import recall_at_k
+    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
+
+    index, q_np, gt, s = s2["index"], s2["queries"], s2["gt"], s2["sizes"]
+    B, P = q_np.shape[0], s["nprobe"]
+    q = torch.tensor(q_np, device=device)
+    base = dict(k=s["k"], nprobe=P, max_codes=s["max_codes"],
+                coarse_mode="exact")
+    prm = SearchParams(**base)
+    index.engine = "fused"
+    mem_reset(device)
+    t = time.perf_counter()
+    sh = ShardedIVFADC(index, make_mesh(devices=[device] * 8))
+    for x in sh.shards:
+        x.store.codes_t, x.store.ids_t, x.store.norm_codes_t
+        x.store.list_offsets_t
+    _sync(device)
+    layout_s = time.perf_counter() - t
+    same = probe_agreement(sh, index, q, P, "scale2 sharded probes")
+    # how a query's probes spread over the shards' centroid ranges
+    owner = global_probes(sh.group, sh.shards, q, P)[1] // sh.nc_loc
+    per = torch.zeros((B, 8), device=device).scatter_add_(
+        1, owner, torch.ones(owner.shape, device=device))
+    spread = {"shards_per_query": float((per > 0).sum(1).float().mean()),
+              "top_shard_share": float(per.max(1).values.mean() / P)}
+    cb = index._coarse_block_for(B)
+    coarse = {"sharded": device_ms(lambda: global_probes(
+        sh.group, sh.shards, q, P)), "single": device_ms(
+        lambda: streaming_topk_l2(q, index.centroids, P, block=cb,
+                                  point_sqnorms=index.centroid_norms))}
+    order = [(layout, topk) for layout in ("chunk", "quad")
+             for topk in ("wide", "twophase")]
+    walls = {(c, w): [] for c in order for w in ("single", "sharded")}
+    out, slots = {}, {}
+    for i, (layout, topk) in enumerate(order + order[::-1]):
+        index.scan_layout = sh.scan_layout = layout
+        index.scan_topk = sh.scan_topk = topk
+        gran = sh.scan_gran()
+        single = SearchParams(**base, scan_budget=s2["budget"][layout])
+        need = ["adc_scan_slots"] + (["adc_scan_slots_min"]
+                                     if topk == "twophase" else [])
+        runs = (("single", lambda: index.search(q_np, single, batch=B)),
+                ("sharded", lambda: pl.counted(
+                    "18a", gran, need, lambda: sh.search(q_np, prm, batch=B),
+                    f"sharded scale2 {layout} {topk}")))
+        for who, fn in (runs if i < len(order) else runs[::-1]):
+            if i < len(order):
+                fn()                                   # warm the shapes
+            t = time.perf_counter()
+            out[(layout, topk), who] = fn()
+            walls[(layout, topk), who].append(time.perf_counter() - t)
+        slots[layout] = dict(sh.last_slots)
+    peak = peak_gib(device)
+    us = {k: 1e6 * min(w) / B for k, w in walls.items()}
+    for c in order:
+        d0, l0 = out[c, "single"]
+        d1, l1 = out[c, "sharded"]
+        if d1.shape != (B, s["k"]) or not np.array_equal(
+                np.isfinite(d1[same]), np.isfinite(d0[same])):
+            raise AssertionError(f"sharded scale2 {c}: {d1.shape} distances, "
+                                 "+inf where the single index has none")
+        assert_same(d0[same], l0[same], d1[same], l1[same],
+                    f"sharded scale2 {c} vs the single index")
+    rec = recall_at_k(out[("quad", "wide"), "sharded"][1], gt, ks=(1, 10))
+    loads = [x.store.ntotal for x in sh.shards]
+    print(f"[sharded] 18a scale2 over 8 local shards on {device}: layout "
+          f"{layout_s:.2f} s (shard loads {min(loads)}..{max(loads)} "
+          f"codes); a query's {P} probes fall in "
+          f"{spread['shards_per_query']:.2f} shards on average, "
+          f"{spread['top_shard_share']:.3f} of them in its fullest shard; "
+          f"probe lists equal to the single index's on "
+          f"{int(same.sum())} of {B} queries (the rest differ only at f32 "
+          f"ties), results equal on those; coarse ms sharded "
+          f"{coarse['sharded']:.4f} single {coarse['single']:.4f}; R@1 "
+          f"{rec[1]:.4f} R@10 {rec[10]:.4f}; device peak {peak} GiB",
+          flush=True)
+    for layout in ("chunk", "quad"):
+        index.scan_layout = layout
+        gran = index.scan_gran()
+        print(f"[sharded] 18a {layout} ({gran} codes/slot): slots per shard "
+              + json.dumps(slots[layout]) + f" (sum "
+              f"{sum(slots[layout].values())}; single index worst case "
+              f"{index._scan_slots(prm, P, gran)}, profiled "
+              f"{s2['budget'][layout] // gran}); us/query (best of 2, in "
+              f"turns) " + json.dumps(
+                  {f"{topk}/{w}": round(us[(layout, topk), w], 3)
+                   for topk in ("wide", "twophase")
+                   for w in ("single", "sharded")}), flush=True)
+
+    # the scan kernels on the busiest shard's schedule, against plain
+    for layout in ("chunk", "quad"):
+        sh.scan_layout = layout
+        gran = sh.scan_gran()
+        rank = max(slots[layout], key=slots[layout].get)
+        args = (*sh.scan_inputs(q_np, prm, rank), gran)
+        length, code_m = args[5], args[2].shape[1]
+        for name, wrapper, plain in (
+                (f"adc_scan_slots_gran{gran}", tk.adc_scan_slots,
+                 tk.adc_scan_slots_plain),
+                (f"adc_scan_slots_min_gran{gran}", tk.adc_scan_slots_min,
+                 tk.adc_scan_slots_min_plain)):
+            got = wrapper(*args)
+            if not torch.equal(got, plain(*args)):
+                raise AssertionError(f"sharded {name}: kernel not "
+                                     "torch.equal to its plain version")
+            r = {"shard": rank, "slots": length.shape[1],
+                 "lane_fill": int(length.sum()) / (B * length.shape[1]
+                                                   * gran),
+                 "ms": device_ms(lambda w=wrapper: w(*args)),
+                 "plain_ms": device_ms(lambda p=plain: p(*args), reps=3,
+                                       warmup=1),
+                 **scan_bound(args, got.numel(), code_m + 1,
+                              code_m + (2 if "min" in name else 1))}
+            for krec in kernels:
+                if krec["name"] == name:
+                    krec["sharded"] = r
+            print(f"[sharded] {name} on shard {rank}'s schedule (B={B}, "
+                  f"{r['slots']} slots, lane fill {r['lane_fill']:.3f}): "
+                  f"torch.equal to plain; kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']}", flush=True)
+        del args, got
+    del sh
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 18b. one NCCL rank holding the whole index
+    index.scan_layout, index.scan_topk = "quad", "wide"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                world_size=1, rank=0,
+                                timeout=timedelta(seconds=300))
+        try:
+            dsh = ShardedIVFADC(index, DistributedShards(device))
+            same1 = probe_agreement(dsh, index, q, P, "nccl probes")
+            d2, l2 = pl.counted("18b", dsh.scan_gran(), ["adc_scan_slots"],
+                                lambda: dsh.search(q_np, prm, batch=B),
+                                "nccl sharded search")
+            d0, l0 = out[("quad", "wide"), "single"]
+            assert_same(d0[same1], l0[same1], d2[same1], l2[same1],
+                        "nccl sharded vs the single index")
+            print(f"[sharded] 18b one NCCL rank ({dist.get_backend()}, "
+                  f"world size {dist.get_world_size()}) over the whole "
+                  f"index: equal to the single index on {int(same1.sum())} "
+                  f"of {B} queries with equal probe lists (the rest differ "
+                  f"only at f32 ties); slots {dsh.last_slots}", flush=True)
+            del dsh
+        finally:
+            dist.destroy_process_group()
+    index.scan_topk = "auto"
+
+
+def store_ties(ref, got, index, base: np.ndarray, what: str) -> dict:
+    """Two stores of the same vectors (ids 0..n-1): equal arrays, or each
+    vector's list, PQ code and norm code equal except at a near-tie that
+    is shown (its two centroids, codewords or norm centroids equally near
+    to f32 rounding). Returns the counts of such ties."""
+    import torch
+    names = ("codes", "ids", "norm_codes", "list_offsets")
+    if all(np.array_equal(getattr(ref, n), getattr(got, n)) for n in names):
+        return {"keys": 0, "codes": 0, "norm_codes": 0}
+
+    def by_id(st):
+        keys = np.repeat(np.arange(st.nc), np.diff(st.list_offsets))
+        order = np.argsort(st.ids, kind="stable")
+        return keys[order], st.codes[order], st.norm_codes[order]
+
+    (kr, cr, nr), (kg, cg, ng) = by_id(ref), by_id(got)
+    dev = index.device
+    x = torch.tensor(base, device=dev)
+    ties = {}
+    rows = np.nonzero(kr != kg)[0]
+    ties["keys"] = int(rows.size)
+    if rows.size:
+        xr = x[rows]
+        da, db = (((xr - index.centroids[torch.tensor(k[rows], device=dev)])
+                   ** 2).sum(1) for k in (kr, kg))
+        torch.testing.assert_close(da, db, rtol=1e-5, atol=1e-4,
+                                   msg=lambda m: f"{what} keys: {m}")
+    same_key = kr == kg
+    r2, ms = np.nonzero((cr != cg) & same_key[:, None])
+    ties["codes"] = int(r2.size)
+    if r2.size:
+        xr = x[r2] - index.centroids[torch.tensor(kr[r2], device=dev)]
+        sub = index._rotate(xr).reshape(r2.size, index.pq.M, -1)[
+            torch.arange(r2.size, device=dev), torch.tensor(ms, device=dev)]
+        cb = index.pq.codebooks[torch.tensor(ms, device=dev)]
+        da, db = (((sub - cb[torch.arange(r2.size, device=dev), torch.tensor(
+            c[r2, ms].astype(np.int64), device=dev)]) ** 2).sum(1)
+            for c in (cr, cg))
+        torch.testing.assert_close(da, db, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"{what} codes: {m}")
+    r3 = np.nonzero((nr != ng) & same_key & (cr == cg).all(1))[0]
+    ties["norm_codes"] = int(r3.size)
+    if r3.size:
+        c = index.centroids[torch.tensor(kr[r3], device=dev)]
+        rec = index._decode(torch.tensor(cr[r3], device=dev)) + c
+        norms = (rec * rec).sum(1)
+        cents = index.norm_pq.centroids
+        da, db = ((norms - cents[torch.tensor(n[r3].astype(np.int64),
+                                              device=dev)]).abs()
+                  for n in (nr, ng))
+        torch.testing.assert_close(da, db, rtol=0,
+                                   atol=1e-5 * float(norms.max()),
+                                   msg=lambda m: f"{what} norm codes: {m}")
+    return ties
+
+
+def run_sharded_primary(device, cfg, ds, index, gi, pl: PhaseLaunches,
+                        kernels: list) -> None:
+    """Phases 18c-18e over phase 8's flagship ``gi`` and phase 4's
+    primary index ``index`` and its corpus ``ds``."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    import torch
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.ops.grouping import (group_terms, pruning_sums,
+                                                query_terms)
+    from ivfhnsw_tpu_torch.parallel import (ShardedGrouping, ShardedIVFADC,
+                                            make_mesh)
+    from ivfhnsw_tpu_torch.parallel.pipeline import (StreamedIndexBuild,
+                                                     host_slice,
+                                                     merge_host_spills)
+    from ivfhnsw_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+    from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
+
+    g8 = make_mesh(devices=[device] * 8)
+    q_np = ds.queries[:SEARCH_BATCH]
+    q = torch.tensor(q_np, device=device)
+    B = q.shape[0]
+
+    # 18c. the flagship over 8 shards, pruning off and on, both widths
+    gcfg = flagship_cfg(cfg)
+    P = gcfg.search.nprobe
+    gi.engine = "fused"
+    gsh = ShardedGrouping(gi, g8)
+    same = probe_agreement(gsh, gi, q, P, "flagship sharded probes")
+    gv = gi._grouped()
+    qc, probes = streaming_topk_l2(q, gi.centroids, P,
+                                   block=gi._coarse_block_for(B),
+                                   point_sqnorms=gi.centroid_norms)
+    for pruning in (False, True):
+        prm = dataclasses.replace(gcfg.search, do_pruning=pruning)
+        keep, nflip = same, 0
+        if pruning:
+            # the decisions of both against each other on the queries
+            # whose probe lists agree: a flip lies at the threshold
+            _, _, scan1, _ = query_terms(
+                q, qc, probes, gi.centroids, gi.centroid_norms,
+                gi.nn_centroid_idxs, gi.alphas, gi.inter_centroid_dists,
+                gv.sub_sizes_t, prm.max_codes, True)
+            terms, scans, _ = gsh._terms(q, prm)
+            scan_s = functools.reduce(torch.logical_or,
+                                      [x.to(device) for x in scans])
+            agree = torch.tensor(same, device=device)[:, None, None]
+            flips = (scan1 != scan_s) & agree
+            nflip = int(flips.sum())
+            if nflip:
+                _, _, qsd, ssz = group_terms(
+                    q, qc, probes, gi.centroids, gi.centroid_norms,
+                    gi.nn_centroid_idxs, gi.alphas, gi.inter_centroid_dists,
+                    gv.sub_sizes_t, True)
+                tot, cnt = pruning_sums(qsd, ssz, ssz.sum(2), prm.max_codes)
+                thr = (tot / cnt.clamp_min(1))[:, None, None].expand_as(qsd)
+                gap = ((qsd - thr).abs() / thr.abs())[flips]
+                if float(gap.max()) > 1e-5:
+                    raise AssertionError(f"flagship sharded: a pruning flip "
+                                         f"{float(gap.max())} (relative) "
+                                         "from the threshold")
+            keep = same & ~flips.any((1, 2)).cpu().numpy()
+            del terms, scans, scan_s, scan1
+        for layout in ("chunk", "quad"):
+            gi.scan_layout = gsh.scan_layout = layout
+            gran = gsh.scan_gran()
+            t = time.perf_counter()
+            d0, l0 = gi.search(q_np, prm)
+            t_single = time.perf_counter() - t
+            gsh.search(q_np[:64], prm)                      # warm the shapes
+            t = time.perf_counter()
+            d1, l1 = pl.counted("18c", gran, ["grouping_scan_slots"],
+                                lambda: gsh.search(q_np, prm),
+                                f"flagship sharded {layout}")
+            t_sharded = time.perf_counter() - t
+            assert_same(d0[keep], l0[keep], d1[keep], l1[keep],
+                        f"flagship sharded {layout} pruning={pruning}")
+            print(f"[sharded] 18c flagship over 8 shards, pruning={pruning}, "
+                  f"{layout}: equal to the single index on {int(keep.sum())} "
+                  f"of {B} queries (probe lists differ on "
+                  f"{int((~same).sum())}, at f32 ties; {nflip} subgroups "
+                  f"pruned differently, each within 1e-5 of the threshold); "
+                  f"slots per shard {gsh.last_slots}; wall {t_sharded:.4f} s "
+                  f"against {t_single:.4f} s single", flush=True)
+    # the grouping kernel on the busiest shard's schedule
+    prm = gcfg.search
+    for layout in ("chunk", "quad"):
+        gi.scan_layout = gsh.scan_layout = layout
+        gran = gsh.scan_gran()
+        gsh.search(q_np, prm)
+        rank = max(gsh.last_slots, key=gsh.last_slots.get)
+        args = (*gsh.scan_inputs(q_np, prm, rank), gran)
+        got = tg.grouping_scan_slots(*args)
+        if not torch.equal(got, tg.grouping_scan_slots_plain(*args)):
+            raise AssertionError("sharded grouping kernel not torch.equal to "
+                                 "its plain version")
+        r = {"shard": rank, "slots": args[6].shape[1],
+             "ms": device_ms(lambda: tg.grouping_scan_slots(*args)),
+             "plain_ms": device_ms(lambda: tg.grouping_scan_slots_plain(
+                 *args), reps=3, warmup=1)}
+        r.update({k: v for k, v in grouping_scan_bound(args[:-1], got,
+                                                       gran).items()
+                  if k not in ("kept_lanes", "filled_lanes")})
+        for krec in kernels:
+            if krec["name"] == f"grouping_scan_slots_gran{gran}":
+                krec["sharded"] = r
+        print(f"[sharded] grouping_scan_slots_gran{gran} on shard {rank}'s "
+              f"schedule ({r['slots']} slots): torch.equal to plain; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms", flush=True)
+        del args, got
+    gi.scan_layout = "auto"
+    del gsh
+
+    # 18d. the streamed build of phase 4's rows over 8 shards
+    def fresh():
+        i = IVFADCIndex(index.config, device)
+        i.set_centroids(index.centroids)
+        i.pq, i.norm_pq, i.opq_R = index.pq, index.norm_pq, index.opq_R
+        return i
+
+    bs, nb = 262_144, ds.nb
+    stop = (nb // 2) // bs * bs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_build_") as tmp:
+        wd = os.path.join(tmp, "one")
+        adds = 0.0
+        b = StreamedIndexBuild(fresh(), g8, wd)
+        for off in range(0, stop, bs):
+            t = time.perf_counter()
+            b.add_batch(ds.base[off:off + bs])
+            adds += time.perf_counter() - t
+        b.close()
+        with open(os.path.join(wd, "codes.u8"), "ab") as f:
+            f.write(b"\x7f" * 777)                 # a torn write
+        b = StreamedIndexBuild(fresh(), g8, wd)
+        if b.processed != stop:
+            raise AssertionError(f"resumed at {b.processed}, not {stop}")
+        for off in range(stop, nb, bs):
+            t = time.perf_counter()
+            b.add_batch(ds.base[off:off + bs])
+            adds += time.perf_counter() - t
+        t = time.perf_counter()
+        built = b.finalize()
+        _sync(device)
+        fin_s = time.perf_counter() - t
+        ties = store_ties(index.store, built.store, index, ds.base,
+                          "streamed build")
+        dirs = []
+        for h in range(2):
+            lo, hi = host_slice(nb, 2, h)
+            dirs.append(os.path.join(tmp, f"host_{h:03d}"))
+            bh = StreamedIndexBuild(fresh(), g8, dirs[-1])
+            for off in range(lo, hi, bs):
+                e = min(off + bs, hi)
+                bh.add_batch(ds.base[off:e], np.arange(off, e,
+                                                       dtype=np.int32))
+            bh.close()
+        mties = store_ties(index.store, merge_host_spills(fresh(),
+                                                          dirs).store,
+                           index, ds.base, "two-host merge")
+        spill = sum(os.path.getsize(os.path.join(wd, n))
+                    for n in os.listdir(wd))
+    print(f"[sharded] 18d streamed build of {nb} rows over 8 shards in "
+          f"batches of {bs}: stopped at {stop}, torn bytes truncated, "
+          f"resumed; {nb / adds:.0f} rows/s through add_batch ({adds:.3f} "
+          f"s, spills {spill} B), finalize {fin_s:.3f} s; store against "
+          f"phase 4's: near-ties " + json.dumps(ties) + "; two hosts "
+          "merged: near-ties " + json.dumps(mties), flush=True)
+
+    # 18e. the 8-shard primary index through a sharded checkpoint
+    prm = cfg.search
+    sh = ShardedIVFADC(index, g8)
+    gran = sh.scan_gran()
+    d0, l0 = pl.counted("18e", gran, ["adc_scan_slots"],
+                        lambda: sh.search(ds.queries, prm), "sharded primary")
+    same = probe_agreement(sh, index, torch.tensor(ds.queries[:B],
+                                                   device=device),
+                           prm.nprobe, "primary sharded probes")
+    index.engine = "fused"
+    ds_, ls_ = index.search(ds.queries[:B], prm)
+    assert_same(ds_[same], ls_[same], d0[:B][same], l0[:B][same],
+                "sharded primary vs the single index")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        t = time.perf_counter()
+        save_sharded(sh, tmp)
+        save_s = time.perf_counter() - t
+        nbytes = sum(os.path.getsize(os.path.join(tmp, n))
+                     for n in os.listdir(tmp))
+        t = time.perf_counter()
+        back = load_sharded(tmp, g8)
+        load_s = time.perf_counter() - t
+    d1, l1 = back.search(ds.queries, prm)
+    if not (np.array_equal(d0, d1) and np.array_equal(l0, l1)):
+        raise AssertionError("sharded checkpoint: the loaded index searches "
+                             "differently")
+    print(f"[sharded] 18e 8-shard checkpoint of the primary index: {nbytes} "
+          f"B written in {save_s:.3f} s, loaded in {load_s:.3f} s; search "
+          f"of {ds.nq} queries bit-equal after the round trip; equal to the "
+          f"single index on {int(same.sum())} of {B} queries with equal "
+          f"probe lists", flush=True)
 
 
 if __name__ == "__main__":

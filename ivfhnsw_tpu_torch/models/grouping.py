@@ -44,7 +44,8 @@ from ivfhnsw_tpu_torch.models.storage import PostingListBuilder
 from ivfhnsw_tpu_torch.ops import adc as adc_ops
 from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as fused
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
-from ivfhnsw_tpu_torch.ops.grouping import probe_budget, query_terms
+from ivfhnsw_tpu_torch.ops.grouping import (probe_budget, query_terms,
+                                         subgroup_windows)
 from ivfhnsw_tpu_torch.ops.pq import _pq_ip_luts
 from ivfhnsw_tpu_torch.ops.segment import segment_sum
 from ivfhnsw_tpu_torch.utils import io
@@ -458,25 +459,19 @@ class IVFADCGroupingIndex(IVFADCIndex):
             q, qc_dists, probes, self.centroids, self.centroid_norms,
             self.nn_centroid_idxs, self.alphas, self.inter_centroid_dists,
             gv.sub_sizes_t, params.max_codes, params.do_pruning)
-        eff = torch.where(scan, ssz, 0)                           # [B, P, S]
-        inc = probe_budget(eff.sum(dim=2), params.max_codes)
-        B = q.shape[0]
-        slot_ids = (probes[:, :, None] * self.nsubc
-                    + torch.arange(self.nsubc, device=self.device))
-        pos, seg, valid = adc_ops.window_positions(
-            slot_ids.reshape(B, -1), (eff * inc[:, :, None]).reshape(B, -1),
-            store.list_offsets_t, L)
-        slot_bias = (term1[:, :, None] + term2).reshape(B, -1)
-        bias = (torch.gather(slot_bias, 1, seg)
-                + self.norm_pq.centroids[store.norm_codes_t[pos].long()])
+        lists, sizes, inc = subgroup_windows(
+            scan, ssz, probes, torch.where(scan, ssz, 0).sum(dim=2),
+            params.max_codes)
         luts = _pq_ip_luts(self._rotate(q), self.pq.codebooks)
-        dists, sel = adc_ops.adc_scan(luts, store.codes_t[pos], bias, valid,
-                                      params.k)
-        labels = torch.gather(store.ids_t[pos], 1, sel).long()
-        out = dists, torch.where(torch.isfinite(dists), labels, -1)
+        window = adc_ops.window_positions(lists, sizes, store.list_offsets_t,
+                                          L)
+        dists, labels = adc_ops.window_scan(
+            luts, (term1[:, :, None] + term2).reshape(q.shape[0], -1), window,
+            store, self.norm_pq.centroids, params.k)
+        valid = window[2]
         if trace:
-            return (*out, (probes, qc_dists, inc, valid.sum(dim=1)))
-        return out
+            return dists, labels, (probes, qc_dists, inc, valid.sum(dim=1))
+        return dists, labels
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int, coarse: dict,

@@ -55,7 +55,8 @@ from ivfhnsw_tpu_torch.ops.opq import (apply_rotation,
                                        apply_rotation_transpose, load_rotation,
                                        save_rotation, train_opq)
 from ivfhnsw_tpu_torch.ops.pq import (ENCODE_ROWS, NormQuantizer,
-                                      ProductQuantizer, _pq_ip_luts)
+                                      ProductQuantizer, _pq_decode,
+                                      _pq_encode, _pq_ip_luts, norm_encode)
 from ivfhnsw_tpu_torch.ops.topk import topk_smallest
 from ivfhnsw_tpu_torch.utils import io
 from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
@@ -74,6 +75,72 @@ COARSE_MODES = ("auto", "exact", "binned", "approx", "routed")
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def resolve_layout(scan_layout: str, ntotal: int, nc: int) -> str:
+    """Slot width of the fused engine under ``scan_layout``: "quad" (1024
+    codes) when "auto" and the average list (ntotal / nc) fills enough of a
+    1024-code slot, else "chunk" (256)."""
+    if scan_layout not in ("auto", "chunk", "quad"):
+        raise ValueError(f"unknown scan_layout {scan_layout!r}")
+    if scan_layout != "auto":
+        return scan_layout
+    return "quad" if ntotal / max(1, nc) >= QUAD_MIN_AVG_LIST else "chunk"
+
+
+def resolve_two_phase(scan_topk: str) -> bool:
+    """Whether the fused engine takes the two-phase top-k. "auto" resolves
+    to wide, the JAX package's rule (its models/ivfadc.py:473-484, measured
+    there on a TPU); only "twophase" selects it."""
+    if scan_topk not in ("auto", "wide", "twophase"):
+        raise ValueError(f"unknown scan_topk {scan_topk!r}; expected one of "
+                         "auto/wide/twophase")
+    return scan_topk == "twophase"
+
+
+def encode_batch(x: torch.Tensor, keys: torch.Tensor,
+                 centroids: torch.Tensor, codebooks: torch.Tensor,
+                 norm_centroids: torch.Tensor, R: torch.Tensor | None = None):
+    """:func:`encode_against` of x [n, d] against ``centroids[keys]``, in
+    pieces of ENCODE_ROWS rows. Returns (codes [n, M] u8, norm_codes [n]
+    u8) on x's device."""
+    n = x.shape[0]
+    codes = torch.empty((n, codebooks.shape[0]), dtype=torch.uint8,
+                        device=x.device)
+    norm_codes = torch.empty(n, dtype=torch.uint8, device=x.device)
+    for s in range(0, n, ENCODE_ROWS):
+        codes[s:s + ENCODE_ROWS], norm_codes[s:s + ENCODE_ROWS] = (
+            encode_against(x[s:s + ENCODE_ROWS],
+                           centroids[keys[s:s + ENCODE_ROWS]], codebooks,
+                           norm_centroids, R))
+    return codes, norm_codes
+
+
+def coarse_block_for(nc: int, B: int, ceiling: int | None = None) -> int:
+    """Coarse sweep block of the fused engine over nc centroids for a batch
+    of B queries: ``ceiling`` (the user's ``coarse_block``) when given,
+    else as wide as a ~64 MB [B, block] f32 score block allows."""
+    if ceiling:
+        return min(_round_up(nc, 128), ceiling)
+    cap = max(4096, ((64 << 20) // max(B, 1)) // 128 * 128)
+    return min(_round_up(nc, 128), cap)
+
+
+def encode_against(x: torch.Tensor, base: torch.Tensor,
+                   codebooks: torch.Tensor, norm_centroids: torch.Tensor,
+                   R: torch.Tensor | None = None):
+    """residual x - base -> [rotate by R] -> PQ -> decode -> [unrotate] ->
+    reconstruct -> norm code of the reconstruction (IndexIVF_HNSW.cpp:
+    87-121). Returns (codes [n, M] u8, norm_codes [n] u8)."""
+    r = x - base
+    if R is not None:
+        r = apply_rotation(r, R)
+    codes = _pq_encode(r.float(), codebooks)
+    decoded = _pq_decode(codes, codebooks)
+    if R is not None:
+        decoded = apply_rotation_transpose(decoded, R)
+    recon = decoded + base
+    return codes, norm_encode((recon * recon).sum(dim=1), norm_centroids)
 
 
 def read_index_header(path: str) -> tuple[int, int]:
@@ -326,14 +393,17 @@ class IVFADCIndex:
         recon = self._decode(self.pq.encode(self._rotate(residuals))) + base
         self.norm_pq.train(generator, (recon * recon).sum(dim=1))
 
+    def _check_rotation(self) -> None:
+        if self.do_opq and self.opq_R is None:
+            raise RuntimeError("OPQ index has no rotation: call train_pq "
+                               "first")
+
     def _rotate(self, x: torch.Tensor) -> torch.Tensor:
         """x @ R.T under OPQ (residuals before PQ, queries before their
         LUTs); x itself otherwise."""
         if not self.do_opq:
             return x
-        if self.opq_R is None:
-            raise RuntimeError("OPQ index has no rotation: call train_pq "
-                               "first")
+        self._check_rotation()
         return apply_rotation(x, self.opq_R)
 
     def _decode(self, codes: torch.Tensor) -> torch.Tensor:
@@ -348,26 +418,22 @@ class IVFADCIndex:
     # ------------------------------------------------------------------
 
     def _encode_batch(self, x: torch.Tensor, keys: torch.Tensor):
-        """Codes of x [n, d] against the centroids of ``keys``, in pieces of
-        ENCODE_ROWS rows. Returns (codes [n, M] u8, norm_codes [n] u8) on
-        the device."""
-        n = x.shape[0]
-        codes = torch.empty((n, self.config.pq_m), dtype=torch.uint8,
-                            device=self.device)
-        norm_codes = torch.empty(n, dtype=torch.uint8, device=self.device)
-        for s in range(0, n, ENCODE_ROWS):
-            base = self.centroids[keys[s:s + ENCODE_ROWS]]
-            codes[s:s + ENCODE_ROWS], norm_codes[s:s + ENCODE_ROWS] = (
-                self._encode(x[s:s + ENCODE_ROWS], base))
-        return codes, norm_codes
+        """Codes of x [n, d] against the centroids of ``keys``
+        (:func:`encode_batch`). Returns (codes [n, M] u8, norm_codes [n]
+        u8) on the device."""
+        self._check_rotation()
+        return encode_batch(x, keys, self.centroids, self.pq.codebooks,
+                            self.norm_pq.centroids,
+                            self.opq_R if self.do_opq else None)
 
     def _encode(self, x: torch.Tensor, base: torch.Tensor):
         """residual against ``base`` -> [rotate] -> PQ -> decode ->
         [unrotate] -> reconstruct -> norm code (IndexIVF_HNSW.cpp:87-121).
         Returns (codes [n, M] u8, norm_codes [n] u8)."""
-        codes = self.pq.encode(self._rotate(x - base))
-        recon = self._decode(codes) + base
-        return codes, self.norm_pq.encode((recon * recon).sum(dim=1))
+        self._check_rotation()
+        return encode_against(x, base, self.pq.codebooks,
+                              self.norm_pq.centroids,
+                              self.opq_R if self.do_opq else None)
 
     def add_batch(self, x, xids=None, precomputed_idx=None) -> None:
         """add_batch equivalent (IndexIVF_HNSW.cpp:75-138). Call finalize()
@@ -479,23 +545,13 @@ class IVFADCIndex:
         return "fused" if self.engine == "auto" else self.engine
 
     def _resolve_two_phase(self) -> bool:
-        """Whether the fused engine takes the two-phase top-k. "auto"
-        resolves to wide, the JAX package's rule (its models/ivfadc.py:
-        473-484, measured there on a TPU); only "twophase" selects it."""
-        if self.scan_topk not in ("auto", "wide", "twophase"):
-            raise ValueError(f"unknown scan_topk {self.scan_topk!r}; expected "
-                             "one of auto/wide/twophase")
-        return self.scan_topk == "twophase"
+        """:func:`resolve_two_phase` of ``scan_topk``."""
+        return resolve_two_phase(self.scan_topk)
 
     def _resolve_layout(self) -> str:
-        """Slot width of the fused engine: "quad" (1024 codes) when the
-        average list fills enough of a 1024-code slot, else "chunk" (256)."""
-        if self.scan_layout not in ("auto", "chunk", "quad"):
-            raise ValueError(f"unknown scan_layout {self.scan_layout!r}")
-        if self.scan_layout != "auto":
-            return self.scan_layout
-        avg = self._ensure_store().ntotal / max(1, self.nc)
-        return "quad" if avg >= QUAD_MIN_AVG_LIST else "chunk"
+        """:func:`resolve_layout` of ``scan_layout`` over this index."""
+        return resolve_layout(self.scan_layout, self._ensure_store().ntotal,
+                              self.nc)
 
     def scan_gran(self) -> int:
         """Codes per fused-engine slot under the resolved layout."""
@@ -566,11 +622,8 @@ class IVFADCIndex:
     def _coarse_block_for(self, B: int) -> int:
         """Coarse sweep block of the fused engine for a batch of B queries:
         the user's ``coarse_block`` as a ceiling, else as wide as a ~64 MB
-        [B, block] f32 score block allows."""
-        if self.coarse_block:
-            return min(_round_up(self.nc, 128), self.coarse_block)
-        cap = max(4096, ((64 << 20) // max(B, 1)) // 128 * 128)
-        return min(_round_up(self.nc, 128), cap)
+        [B, block] f32 score block allows (:func:`coarse_block_for`)."""
+        return coarse_block_for(self.nc, B, self.coarse_block)
 
     def _search_torch(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, L: int, trace: bool = False):
@@ -595,15 +648,13 @@ class IVFADCIndex:
         luts = _pq_ip_luts(self._rotate(q), self.pq.codebooks)
         pos, seg, valid, included = adc_ops.probe_positions(
             probes, store.list_offsets_t, max_codes, L)
-        g_norm = self.norm_pq.centroids[store.norm_codes_t[pos].long()]
-        term1 = torch.gather(qc_dists - self.centroid_norms[probes], 1, seg)
-        dists, sel = adc_ops.adc_scan(luts, store.codes_t[pos],
-                                      term1 + g_norm, valid, k)
-        labels = torch.gather(store.ids_t[pos], 1, sel).long()
-        out = dists, torch.where(torch.isfinite(dists), labels, -1)
+        dists, labels = adc_ops.window_scan(
+            luts, qc_dists - self.centroid_norms[probes], (pos, seg, valid),
+            store, self.norm_pq.centroids, k)
         if trace:
-            return (*out, (probes, qc_dists, included, valid.sum(dim=1)))
-        return out
+            return (dists, labels,
+                    (probes, qc_dists, included, valid.sum(dim=1)))
+        return dists, labels
 
     def _search_fused(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int, coarse: dict,

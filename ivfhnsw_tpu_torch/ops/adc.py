@@ -61,6 +61,24 @@ def window_positions(lists: torch.Tensor, sizes: torch.Tensor,
     return torch.where(valid, pos, 0), seg, valid
 
 
+def window_scan(luts: torch.Tensor, term1: torch.Tensor, window: tuple,
+                store, norm_tab: torch.Tensor, k: int):
+    """The portable scan over a window (pos, seg, valid) of
+    :func:`window_positions` into ``store`` (a
+    ``models.storage.PostingListStore``): distance term1[b, seg] +
+    norm_tab[norm code] - 2 * sum_m luts[b, m, code_m], then the top-k.
+    luts [B, M, ksub]; term1 [B, n] f32.
+
+    Returns (dists [B, k] ascending, labels [B, k] int64, -1 where the
+    distance is +inf)."""
+    pos, seg, valid = window
+    bias = (torch.gather(term1, 1, seg)
+            + norm_tab[store.norm_codes_t[pos].long()])
+    dists, sel = adc_scan(luts, store.codes_t[pos], bias, valid, k)
+    labels = torch.gather(store.ids_t[pos], 1, sel).long()
+    return dists, torch.where(torch.isfinite(dists), labels, -1)
+
+
 def adc_distances(luts: torch.Tensor, codes: torch.Tensor,
                   bias: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """ADC distances ``bias - 2 * sum_m luts[b, m, codes[b, l, m]]`` over a

@@ -16,7 +16,10 @@ qsd over the subgroups of the probes whose groups, counted before them,
 hold fewer than 2 * max_codes codes (:251-262).
 
 Both engines take these terms from :func:`query_terms`, so their pruning
-decisions are the same bits and the engines differ only in the scan.
+decisions are the same bits and the engines differ only in the scan. The
+sharded search (``parallel/sharded_grouping.py``) takes its pieces
+(:func:`group_terms`, :func:`pruning_sums`, :func:`prune`) with sums over
+the shard group between them.
 """
 
 from __future__ import annotations
@@ -47,6 +50,56 @@ def neighbor_dists(queries: torch.Tensor, centroids: torch.Tensor,
     return q_sq[:, None, None] - 2.0 * ip + centroid_norms[p_nn]
 
 
+def group_terms(queries: torch.Tensor, qc_dists: torch.Tensor,
+                probes: torch.Tensor, centroids: torch.Tensor,
+                centroid_norms: torch.Tensor, nn_idxs: torch.Tensor,
+                alphas: torch.Tensor, inter_dists: torch.Tensor,
+                sub_sizes: torch.Tensor, with_qsd: bool,
+                groups: torch.Tensor | None = None):
+    """The per-probe grouping terms of a query batch. queries [B, d];
+    qc_dists, probes [B, P] (ascending coarse distance, ids into centroids
+    [nc, d] / centroid_norms [nc]); nn_idxs, inter_dists, sub_sizes
+    [ng, S] and alphas [ng], the per-group state, indexed by ``groups``
+    [B, P] (default: ``probes``; a shard passes its local group ids).
+
+    Returns (term1 [B, P] f32, term2 [B, P, S] f32, qsd [B, P, S] f32 —
+    the estimated query-subcentroid distance, None unless ``with_qsd`` —,
+    ssz [B, P, S] int64 subgroup sizes)."""
+    p = probes.long()
+    g = p if groups is None else groups.long()
+    p_nn = nn_idxs[g]                                         # [B, P, S]
+    qn = neighbor_dists(queries, centroids, centroid_norms, p_nn)
+    a = alphas[g]                                             # [B, P]
+    one_m_a = (1.0 - a)[:, :, None]
+    a_b = a[:, :, None]
+    qsd = (one_m_a * qc_dists[:, :, None] + a_b * qn
+           - a_b * one_m_a * inter_dists[g]) if with_qsd else None
+    term1 = (1.0 - a) * (qc_dists - centroid_norms[p])
+    term2 = a_b * (qn - centroid_norms[p_nn])
+    return term1, term2, qsd, sub_sizes[g]
+
+
+def pruning_sums(qsd: torch.Tensor, ssz: torch.Tensor,
+                 group_sizes: torch.Tensor, max_codes: int):
+    """The two parts of the pruning threshold (the mean qsd over the
+    non-empty subgroups of the probes whose groups, counted before them by
+    ``group_sizes`` [B, P], hold fewer than 2 * max_codes codes): (sum of
+    those qsd [B] f32, their count [B] int64)."""
+    g_cum_before = torch.cumsum(group_sizes, dim=1) - group_sizes
+    thr_probe = (g_cum_before < 2 * max_codes) | (max_codes <= 0)
+    thr_mask = (ssz > 0) & thr_probe[:, :, None]
+    return (torch.where(thr_mask, qsd, 0.0).sum(dim=(1, 2)),
+            thr_mask.sum(dim=(1, 2)))
+
+
+def prune(qsd: torch.Tensor, ssz: torch.Tensor, total: torch.Tensor,
+          count: torch.Tensor) -> torch.Tensor:
+    """[B, P, S] bool: the non-empty subgroups whose qsd is below the
+    threshold total / count (:func:`pruning_sums`)."""
+    threshold = total / count.clamp_min(1)
+    return (ssz > 0) & (qsd < threshold[:, None, None])
+
+
 def query_terms(queries: torch.Tensor, qc_dists: torch.Tensor,
                 probes: torch.Tensor, centroids: torch.Tensor,
                 centroid_norms: torch.Tensor, nn_idxs: torch.Tensor,
@@ -59,30 +112,32 @@ def query_terms(queries: torch.Tensor, qc_dists: torch.Tensor,
     Returns (term1 [B, P] f32, term2 [B, P, S] f32,
              scan [B, P, S] bool — subgroup non-empty and not pruned,
              ssz [B, P, S] int64 — subgroup sizes)."""
-    p = probes.long()
-    p_nn = nn_idxs[p]                                         # [B, P, S]
-    qn = neighbor_dists(queries, centroids, centroid_norms, p_nn)
-    a = alphas[p]                                             # [B, P]
-    one_m_a = (1.0 - a)[:, :, None]
-    a_b = a[:, :, None]
-    ssz = sub_sizes[p]
-    nonempty = ssz > 0
+    term1, term2, qsd, ssz = group_terms(
+        queries, qc_dists, probes, centroids, centroid_norms, nn_idxs,
+        alphas, inter_dists, sub_sizes, do_pruning)
     if do_pruning:
-        qsd = (one_m_a * qc_dists[:, :, None] + a_b * qn
-               - a_b * one_m_a * inter_dists[p])
-        g_sizes = ssz.sum(dim=2)
-        g_cum_before = torch.cumsum(g_sizes, dim=1) - g_sizes
-        thr_probe = (g_cum_before < 2 * max_codes) | (max_codes <= 0)
-        thr_mask = nonempty & thr_probe[:, :, None]
-        n_slots = thr_mask.sum(dim=(1, 2)).clamp_min(1)
-        threshold = (torch.where(thr_mask, qsd, 0.0).sum(dim=(1, 2))
-                     / n_slots)
-        scan = nonempty & (qsd < threshold[:, None, None])
+        scan = prune(qsd, ssz, *pruning_sums(qsd, ssz, ssz.sum(dim=2),
+                                             max_codes))
     else:
-        scan = nonempty
-    term1 = (1.0 - a) * (qc_dists - centroid_norms[p])
-    term2 = a_b * (qn - centroid_norms[p_nn])
+        scan = ssz > 0
     return term1, term2, scan, ssz
+
+
+def subgroup_windows(scan: torch.Tensor, ssz: torch.Tensor,
+                     groups: torch.Tensor, budget_sizes: torch.Tensor,
+                     max_codes: int):
+    """The portable engine's scan windows: each probe's scanned subgroups
+    (lists groups * S + subc of the store), the probe admitted by the
+    max_codes budget over ``budget_sizes`` [B, P] (unpruned codes per
+    probe). Returns (lists [B, P*S] int64, sizes [B, P*S] int64,
+    included [B, P] bool)."""
+    B, P, S = ssz.shape
+    eff = torch.where(scan, ssz, 0)
+    inc = probe_budget(budget_sizes, max_codes)
+    lists = groups.long()[:, :, None] * S + torch.arange(S,
+                                                         device=ssz.device)
+    return (lists.reshape(B, -1), (eff * inc[:, :, None]).reshape(B, -1),
+            inc)
 
 
 def probe_budget(eff_sizes: torch.Tensor, max_codes: int) -> torch.Tensor:

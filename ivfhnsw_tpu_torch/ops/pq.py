@@ -43,6 +43,17 @@ def _pq_decode(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     return codebooks[midx, codes.long()].reshape(n, M * dsub)
 
 
+def norm_encode(norms: torch.Tensor,
+                centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest of the norm quantizer's ``centroids`` [ksub] for each of
+    ``norms`` [n] -> codes [n] uint8, in pieces of ENCODE_ROWS rows."""
+    out = torch.empty(norms.shape[0], dtype=torch.uint8, device=norms.device)
+    for s in range(0, norms.shape[0], ENCODE_ROWS):
+        d = (norms[s:s + ENCODE_ROWS, None].float() - centroids[None, :]).abs()
+        out[s:s + ENCODE_ROWS] = d.argmin(dim=1).to(torch.uint8)
+    return out
+
+
 def _pq_ip_luts(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Per-query inner-product LUTs: q [B, d] -> [B, M, ksub] f32, with
     LUT[b, m, k] = <q_b restricted to subspace m, codebook[m, k]>
@@ -123,13 +134,7 @@ class NormQuantizer:
         return self
 
     def encode(self, norms: torch.Tensor) -> torch.Tensor:
-        out = torch.empty(norms.shape[0], dtype=torch.uint8,
-                          device=norms.device)
-        for s in range(0, norms.shape[0], ENCODE_ROWS):
-            d = (norms[s:s + ENCODE_ROWS, None].float()
-                 - self.centroids[None, :]).abs()
-            out[s:s + ENCODE_ROWS] = d.argmin(dim=1).to(torch.uint8)
-        return out
+        return norm_encode(norms, self.centroids)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         return self.centroids[codes.long()]

@@ -168,3 +168,72 @@ def test_rejects_an_unknown_format(tmp_path):
         json.dumps({"format": "nope"}))
     with pytest.raises(ValueError):
         checkpoint.load_index(str(tmp_path / "bad"), "cpu")
+
+
+# -- the sharded half: save_sharded / load_sharded_arrays / load_sharded ----
+
+@pytest.fixture(params=[False, True], ids=["ivfadc-pq", "ivfadc-opq"])
+def built_ivfadc(request):
+    return _built(False, request.param)
+
+
+def _save_both(j, t, tmp_path, D=4):
+    from ivfhnsw_tpu.parallel import ShardedIVFADC as JaxSharded
+    from ivfhnsw_tpu.parallel import make_mesh
+    from ivfhnsw_tpu_torch.parallel import LocalShards, ShardedIVFADC
+    pj, pt = str(tmp_path / "sj"), str(tmp_path / "st")
+    jax_checkpoint.save_sharded(JaxSharded(j, make_mesh(D)), pj)
+    checkpoint.save_sharded(ShardedIVFADC(t, LocalShards(["cpu"] * D)), pt)
+    return pj, pt
+
+
+def test_sharded_files_are_byte_identical_to_jax(built_ivfadc, tmp_path):
+    j, t, _ = built_ivfadc
+    pj, pt = _save_both(j, t, tmp_path)
+    names = sorted(os.listdir(pj))
+    assert sorted(os.listdir(pt)) == names and len(names) == 4 * 6 + 4
+    for name in names:
+        with open(os.path.join(pj, name), "rb") as f:
+            want = f.read()
+        with open(os.path.join(pt, name), "rb") as f:
+            assert f.read() == want, name
+
+
+def test_each_package_reads_the_others_shards(built_ivfadc, tmp_path):
+    j, t, _ = built_ivfadc
+    pj, pt = _save_both(j, t, tmp_path)
+    for s in range(4):
+        for mine, theirs in ((checkpoint.load_sharded_arrays(pj, s),
+                              jax_checkpoint.load_sharded_arrays(pj, s)),
+                             (jax_checkpoint.load_sharded_arrays(pt, s),
+                              checkpoint.load_sharded_arrays(pt, s))):
+            assert mine["manifest"] == theirs["manifest"] == {
+                "format": "ivfhnsw_tpu.sharded_checkpoint.v1",
+                "n_shards": 4, "nc_loc": 8}
+            for name in checkpoint.SHARD_ARRAYS + checkpoint.REPLICATED:
+                assert mine[name].dtype == theirs[name].dtype, name
+                np.testing.assert_array_equal(mine[name], theirs[name])
+
+
+def test_load_sharded_searches_as_before_saving(built_ivfadc, tmp_path):
+    """A ShardedIVFADC loaded from either package's sharded checkpoint
+    searches as the one saved, bit for bit, and as JAX's sharded search
+    within the cross-engine contract."""
+    from ivfhnsw_tpu_torch.parallel import LocalShards, ShardedIVFADC
+    j, t, queries = built_ivfadc
+    pj, pt = _save_both(j, t, tmp_path)
+    g = LocalShards(["cpu"] * 4)
+    p = SearchParams(k=10, nprobe=8, max_codes=300)
+    before = ShardedIVFADC(t, g)
+    for path in (pt, pj):
+        after = checkpoint.load_sharded(path, g)
+        assert after.do_opq == t.do_opq and after.ntotal == t.store.ntotal
+        for engine in ("torch", "fused"):
+            d1, l1 = before.search(queries, p, engine=engine)
+            d2, l2 = after.search(queries, p, engine=engine)
+            np.testing.assert_array_equal(d2, d1)
+            np.testing.assert_array_equal(l2, l1)
+    jp = dict(k=10, nprobe=8, max_codes=300)
+    assert_same(*_search_jax(j, queries, jp), d2, l2)
+    with pytest.raises(ValueError, match="4 shards"):
+        checkpoint.load_sharded(pt, LocalShards(["cpu"] * 2))

@@ -74,3 +74,20 @@ def test_driver_module_alone_switches_tf32_off():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_dryrun_runs_on_the_cpu(capsys):
+    """tools/dryrun.py (the counterpart of __graft_entry__.py): the
+    multi-shard dry run over 8 CPU shards and the single-index step."""
+    from ivfhnsw_tpu_torch.tools import dryrun
+    dryrun.main(["-n", "8", "-device", "cpu"])
+    out = capsys.readouterr().out
+    assert "sharded search + build + grouping steps OK over 8 shards" in out
+    assert "entry(): (16, 10) (16, 10)" in out
+
+
+def test_dryrun_default_device_without_a_card_is_an_error(monkeypatch):
+    from ivfhnsw_tpu_torch.tools import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["-n", "2"])
