@@ -146,6 +146,23 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    seconds; 18e: the 8-shard primary index through save_sharded /
    load_sharded, searching bit-equal after the round trip.
    ``python3 chip_smoke.py --only 17,18`` runs phases 17 and 18a-18b.
+19. the 1B path ([1b] lines): ivfhnsw_tpu_torch/tools/build_1b.py and
+   tools/search_1b.py run in process at the scale3 geometry (nc=2^20,
+   d=128, code_size 16, 1024 queries, nprobe 128, max_codes 100,000, k=100,
+   batches of 2^21), cut only in --target: 2^28 vectors (a 6.7 GB spill)
+   where users run 1e9; the free disk is printed first. The build runs to
+   half the target, gets torn bytes appended past its cursor and runs to
+   the target (one resume; its ground truth equal to one uninterrupted
+   merge, labels and distances); stage seconds, vectors/s, match rate and
+   drift series, spill bytes, host RSS and device peak. search_1b.py then
+   runs at --shards 4 and 1, each at 256- and 1024-code slots, wide and
+   two-phase, the scan kernels' launch counts required to grow in each;
+   on 64 queries every result equals the torch engine's (the shard's own
+   at 4, IVFADCIndex's over the same store at 1); K1-K4 torch.equal to
+   their plain versions on the busiest shard's schedule, both timed;
+   coarse ms, per-shard assembly and search seconds, µs/query, codes
+   scanned per query at 4 against 1 shard (the JAX tool's per-shard
+   max_codes budget), R@1/10/100. ``--only 19`` runs just this phase.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -204,6 +221,11 @@ SCALE2 = dict(nb=134_217_728, nc=131_072, nq=1024, d=128, code_size=16,
 COARSE20 = dict(nc=1_048_576, learn=8_388_608, nq=1024, d=128, nprobe=128,
                 n_super=2048, match_sample=32_768)
 OVERLAP_TARGET = 0.95
+# Phase 19: the 1B tools at the scale3 geometry (nc=2^20, d=128, code_size
+# 16, 1024 queries, nprobe 128, max_codes 100,000, k=100, batches of 2^21),
+# cut in one thing only: 2^28 vectors where users build 1e9.
+ONE_B = dict(target=268_435_456, batch=2_097_152, nprobe=128,
+             max_codes=100_000, k=100, ctl=64)
 
 
 def smi_line(fields: str = "name,power.limit") -> str:
@@ -515,9 +537,10 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b,18`` builds the kernels and runs only
-    the named large-nc phases (18: its scale2 part, 18a-18b, after phase
-    17; a partial run: no kernels line, no result)."""
+    """The smoke run; ``--only 17,17b,18,19`` builds the kernels and runs
+    only the named large-nc phases (18: its scale2 part, 18a-18b, after
+    phase 17; 19: the 1B path; a partial run: no kernels line, no
+    result)."""
     import torch
     t_command = time.perf_counter()
     only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
@@ -572,6 +595,9 @@ def main(argv: list) -> int:
         if "18" in only:
             run_sharded_scale2(device, s2res, pl, [])
             clock.mark("18a-b")
+        if "19" in only:
+            run_onebillion(device, ONE_B, pl, [])
+            clock.mark("19")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -591,10 +617,10 @@ def main(argv: list) -> int:
 
 
 def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
-        s20: dict = COARSE20) -> list:
-    """Phases 3-17b on ``device`` at the sizes ``p`` (phases 17 / 17b:
-    ``s2`` / ``s20``) over the files ``files``; returns the kernel result
-    records."""
+        s20: dict = COARSE20, onebillion: dict = ONE_B) -> list:
+    """Phases 3-19 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
+    ``s2`` / ``s20`` / ``onebillion``) over the files ``files``; returns
+    the kernel result records."""
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
     from ivfhnsw_tpu_torch.drivers import ivfadc_eval
@@ -815,6 +841,12 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
     clock.mark("18a-b")
     run_sharded_primary(device, cfg, ds, index, gi, pl, kernels)
     clock.mark("18c-e")
+    # 19. the 1B path: build_1b.py with a resume, search_1b.py at 4 and 1
+    # shards, both slot widths, wide and two-phase
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    run_onebillion(device, onebillion, pl, kernels)
+    clock.mark("19")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -2050,48 +2082,6 @@ def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
 
 
 
-class MesoCorpus:
-    """The JAX bench's two-level corpus: n_sup = min(2048, nc / 4) supers
-    (N(0, 5^2)), nc mids around them (N(0, 1.5^2)), points mids[a] +
-    (noise * spectrum @ mix) * 0.7 with spectrum i^-1/2. The supers, the
-    mix and (scale2, bench.py:993-1015) the mids come from numpy
-    RandomState(np_seed); with ``mids_seed`` (scale3, bench.py:1078-1120)
-    the mids are drawn on the card from that generator seed. Points are
-    drawn on the card, one torch.Generator seed per call."""
-
-    def __init__(self, device, nc: int, d: int, np_seed: int,
-                 mids_seed: int | None = None):
-        import torch
-        rng = np.random.RandomState(np_seed)
-        n_sup = min(2048, nc // 4)
-        supers = rng.randn(n_sup, d).astype(np.float32) * 5.0
-        if mids_seed is None:
-            mids = (np.repeat(supers, nc // n_sup, axis=0)
-                    + rng.randn(nc, d).astype(np.float32) * 1.5)
-        self.mix = torch.tensor((rng.randn(d, d).astype(np.float32)
-                                 / np.sqrt(d)).astype(np.float32),
-                                device=device)
-        if mids_seed is None:
-            self.mids = torch.tensor(mids, device=device)
-        else:
-            g = torch.Generator(device=device).manual_seed(mids_seed)
-            self.mids = torch.repeat_interleave(
-                torch.tensor(supers, device=device), nc // n_sup, dim=0)
-            self.mids += torch.randn((nc, d), generator=g,
-                                     device=device) * 1.5
-        self.spectrum = torch.tensor(
-            (np.arange(1, d + 1) ** -0.5).astype(np.float32), device=device)
-        self.device, self.nc, self.d = device, nc, d
-
-    def gen(self, seed: int, n: int):
-        """[n, d] f32 points on the card, the same for the same seed."""
-        import torch
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        a = torch.randint(0, self.nc, (n,), generator=g, device=self.device)
-        noise = torch.randn((n, self.d), generator=g, device=self.device)
-        return self.mids[a] + ((noise * self.spectrum) @ self.mix) * 0.7
-
-
 def host_rss_gib() -> tuple:
     """(current, peak) resident memory of this process, GiB."""
     import resource
@@ -2171,6 +2161,7 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
     from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.ops.routed_coarse import routed_select_ext
+    from ivfhnsw_tpu_torch.tools.scale3 import MesoCorpus
     from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
     from ivfhnsw_tpu_torch.utils.recall import recall_at_k
     from ivfhnsw_tpu_torch.utils.roofline import scan_bound
@@ -2514,6 +2505,7 @@ def run_coarse20(device, s: dict) -> None:
     from ivfhnsw_tpu_torch.ops.kmeans import hierarchical_seed
     from ivfhnsw_tpu_torch.ops.routed_coarse import (RoutedCoarse,
                                                      routed_select_ext)
+    from ivfhnsw_tpu_torch.tools.scale3 import MesoCorpus
 
     stages = {}
 
@@ -2623,14 +2615,12 @@ def run_sharded_scale2(device, s2: dict, pl: PhaseLaunches,
     import torch
     import torch.distributed as dist
     from ivfhnsw_tpu_torch.drivers.common import _sync
-    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
     from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.parallel import (DistributedShards,
                                             ShardedIVFADC, make_mesh)
     from ivfhnsw_tpu_torch.parallel.sharded import global_probes
     from ivfhnsw_tpu_torch.utils.config import SearchParams
     from ivfhnsw_tpu_torch.utils.recall import recall_at_k
-    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
 
     index, q_np, gt, s = s2["index"], s2["queries"], s2["gt"], s2["sizes"]
     B, P = q_np.shape[0], s["nprobe"]
@@ -2724,33 +2714,9 @@ def run_sharded_scale2(device, s2: dict, pl: PhaseLaunches,
         gran = sh.scan_gran()
         rank = max(slots[layout], key=slots[layout].get)
         args = (*sh.scan_inputs(q_np, prm, rank), gran)
-        length, code_m = args[5], args[2].shape[1]
-        for name, wrapper, plain in (
-                (f"adc_scan_slots_gran{gran}", tk.adc_scan_slots,
-                 tk.adc_scan_slots_plain),
-                (f"adc_scan_slots_min_gran{gran}", tk.adc_scan_slots_min,
-                 tk.adc_scan_slots_min_plain)):
-            got = wrapper(*args)
-            if not torch.equal(got, plain(*args)):
-                raise AssertionError(f"sharded {name}: kernel not "
-                                     "torch.equal to its plain version")
-            r = {"shard": rank, "slots": length.shape[1],
-                 "lane_fill": int(length.sum()) / (B * length.shape[1]
-                                                   * gran),
-                 "ms": device_ms(lambda w=wrapper: w(*args)),
-                 "plain_ms": device_ms(lambda p=plain: p(*args), reps=3,
-                                       warmup=1),
-                 **scan_bound(args, got.numel(), code_m + 1,
-                              code_m + (2 if "min" in name else 1))}
-            for krec in kernels:
-                if krec["name"] == name:
-                    krec["sharded"] = r
-            print(f"[sharded] {name} on shard {rank}'s schedule (B={B}, "
-                  f"{r['slots']} slots, lane fill {r['lane_fill']:.3f}): "
-                  f"torch.equal to plain; kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
-                  f"{r['bound_by']}", flush=True)
-        del args, got
+        check_scan_kernels(args, kernels, "sharded", "[sharded]",
+                           f"shard {rank}'s schedule", {"shard": rank})
+        del args
     del sh
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3043,6 +3009,254 @@ def run_sharded_primary(device, cfg, ds, index, gi, pl: PhaseLaunches,
           f"of {ds.nq} queries bit-equal after the round trip; equal to the "
           f"single index on {int(same.sum())} of {B} queries with equal "
           f"probe lists", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the 1B path
+# ---------------------------------------------------------------------------
+
+def run_onebillion(device, s: dict, pl: PhaseLaunches,
+                   kernels: list) -> None:
+    """Phase 19 at the sizes ``s``: ivfhnsw_tpu_torch/tools/build_1b.py to
+    half the target, torn bytes past its cursor, build_1b.py to the target
+    (one resume), its ground truth against an uninterrupted merge; then
+    tools/search_1b.py at --shards 4 and 1 at both slot widths, wide and
+    two-phase, with the scan kernels' launches required to grow, 64 queries
+    against the torch engine (per shard at 4; IVFADCIndex's over the same
+    store at 1), and each scan kernel torch.equal to its plain version on
+    the busiest shard's schedule, both timed."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.parallel.pipeline import SPILLS
+    from ivfhnsw_tpu_torch.tools import build_1b, scale3, search_1b
+
+    target, bs, ctl = s["target"], s["batch"], s["ctl"]
+    k, P, mc = s["k"], s["nprobe"], s["max_codes"]
+    dev = "cpu" if device.type == "cpu" else str(device)
+    prior = os.environ.get("BENCH_CACHE_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_1b_") as cache:
+        os.environ["BENCH_CACHE_DIR"] = cache
+        try:
+            free = shutil.disk_usage(cache).free
+            spill_gb = target * 25 / 1e9      # key, id, code, norm code
+            print(f"[1b] reduced: --target {target} ({target // bs} "
+                  f"batches of {bs}, a {spill_gb:.2f} GB spill) where users "
+                  f"run 1e9 (25 GB); disk free {free / 1e9:.1f} GB in "
+                  f"{os.path.dirname(cache)}", flush=True)
+            if free < 1.2 * spill_gb * 1e9:
+                raise AssertionError(f"phase 19 needs {spill_gb:.2f} GB of "
+                                     f"disk, {free / 1e9:.1f} GB free")
+            flags = ["--batch", str(bs), "--device", dev]
+            mem_reset(device)
+            t = time.perf_counter()
+            half = build_1b.main(["--target", str(target // 2), *flags])
+            first_s = time.perf_counter() - t
+            wd = os.path.join(cache, "build1b")
+            for name in SPILLS:                     # a torn write
+                with open(os.path.join(wd, name), "ab") as f:
+                    f.write(b"\x7f" * 777)
+            t = time.perf_counter()
+            meta = build_1b.main(["--target", str(target), *flags])
+            second_s = time.perf_counter() - t
+            if meta["resumes"] != 1 or meta["processed"] != target:
+                raise AssertionError(f"1B build: resumes {meta['resumes']}, "
+                                     f"processed {meta['processed']}")
+            build_peak = peak_gib(device)
+            # the ground truth against one uninterrupted merge
+            q = torch.tensor(np.load(os.path.join(wd, "queries.npy")),
+                             device=device)
+            corpus = scale3.scale3_corpus(device)
+            ref = scale3.TopOne(q)
+            t = time.perf_counter()
+            for bi in range(target // bs):
+                ref.merge(corpus.gen(scale3.SEED_BASE + bi, bs), bi * bs)
+            gt_s = time.perf_counter() - t
+            del corpus
+            gt_l = np.load(os.path.join(wd, "gt.npy"))
+            gt_d = np.load(os.path.join(wd, "gt_d.npy"))
+            if not (np.array_equal(ref.labels.cpu().numpy(), gt_l)
+                    and np.array_equal(ref.dists.cpu().numpy(), gt_d)):
+                raise AssertionError("1B build: the resumed build's ground "
+                                     "truth differs from one uninterrupted "
+                                     "merge")
+            rss = host_rss_gib()
+            print(f"[1b] build_1b.py to {target // 2} ({first_s:.2f} s, "
+                  f"{half['vectors_per_sec']:.0f} vectors/s), torn bytes "
+                  f"past the cursor, to {target} ({second_s:.2f} s): "
+                  f"resumes {meta['resumes']}, {meta['vectors_per_sec']:.0f} "
+                  f"vectors/s over the two runs' build loops "
+                  f"({meta['build_seconds']} s), prerequisites "
+                  f"{meta.get('prereq_seconds')} s; routed match rate "
+                  f"{meta['match_rate']}, drift " + json.dumps(
+                      meta["drift_series"]) + f", routed abandoned "
+                  f"{meta.get('routed_abandoned', False)}; spill "
+                  f"{meta['spill_bytes']} B; ground truth of {q.shape[0]} "
+                  f"queries equal to an uninterrupted merge (recomputed in "
+                  f"{gt_s:.2f} s); host RSS {rss[0]:.2f} GiB (peak "
+                  f"{rss[1]:.2f}), device peak {build_peak} GiB; stage "
+                  "seconds (both runs) " + json.dumps(meta["stage_seconds"]),
+                  flush=True)
+
+            cents = torch.tensor(np.load(os.path.join(
+                cache, "scale3", "centroids.npy")), device=device)
+            coarse_ms = device_ms(lambda: streaming_topk_l2(
+                q, cents, P, block=16384), reps=5)
+            del cents
+            q_np = q.cpu().numpy()
+            res, busiest = {}, {}
+            for S in (4, 1):
+                for layout, gran in (("chunk", tk.CHUNK), ("quad",
+                                                           tk.RCHUNK)):
+                    seen = {"torch": 0}
+
+                    def hook(info, S=S, gran=gran, layout=layout):
+                        check_shard(info, S, gran, k, P, mc, ctl, q_np,
+                                    seen)
+                        if S == 4:
+                            sl = info["out"][layout, "wide"][2]
+                            if sl > busiest.get(gran, (0,))[0]:
+                                sh = info["shard"]
+                                busiest[gran] = (sl, sh.rank,
+                                                 sh.store.ntotal, sh.scan_args(
+                                    info["queries"], info["probes"],
+                                    info["included"], info["term1"], gran,
+                                    None))
+
+                    mem_reset(device)
+                    res[S, layout] = pl.counted(
+                        "19", gran, ["adc_scan_slots", "adc_scan_slots_min"],
+                        lambda: search_1b.main(
+                            ["--shards", str(S), "--nprobe", str(P),
+                             "--max-codes", str(mc), "--k", str(k),
+                             "--scan-layout", layout,
+                             "--scan-topk", "wide,twophase",
+                             "--device", dev], on_shard=hook),
+                        f"1B search --shards {S} {layout}")
+                    res[S, layout]["peak_gib"] = peak_gib(device)
+                    res[S, layout]["torch_checked"] = seen["torch"]
+                    if S == 4:
+                        slots, rank, rows, sched = busiest.pop(gran)
+                        check_scan_kernels(
+                            (*sched, gran), kernels, "onebillion", "[1b]",
+                            f"shard {rank}'s schedule over {rows} rows",
+                            {"shard": rank, "rows": rows})
+            report_onebillion(res, coarse_ms, ctl)
+        finally:
+            if prior is None:
+                os.environ.pop("BENCH_CACHE_DIR", None)
+            else:
+                os.environ["BENCH_CACHE_DIR"] = prior
+
+
+def check_shard(info: dict, S: int, gran: int, k: int, P: int, mc: int,
+                ctl: int, q_np, seen: dict) -> None:
+    """Phase 19's check of one streamed shard: on ``ctl`` queries, each
+    fused result of the shard against the torch engine, the shard's own
+    (IVFShard.scan, engine "torch") at S = 4 and IVFADCIndex's over the
+    same store at S = 1 (there only queries whose probe list equals the
+    tool's, the others shown to differ at f32 ties)."""
+    from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    from ivfhnsw_tpu_torch.utils.config import SearchParams
+    sh, out = info["shard"], info["out"]
+    if S == 1:
+        proto = info["proto"]
+        idx = IVFADCIndex(proto.config, proto.device)
+        idx.set_centroids(proto.centroids)
+        idx.pq, idx.norm_pq = proto.pq, proto.norm_pq
+        idx.store, idx.engine = sh.store, "torch"
+        d_t, l_t = idx.search(q_np[:ctl], SearchParams(k=k, nprobe=P,
+                                                       max_codes=mc))
+        q = info["queries"][:ctl]
+        d_p, p_p = streaming_topk_l2(q, idx.centroids, P, block=idx._cb(),
+                                     point_sqnorms=idx.centroid_norms)
+        same = (p_p == info["probes"][:ctl]).all(1)
+        if not bool(same.all()):
+            check_ties_only(d_p[~same], p_p[~same], info["qc"][:ctl][~same],
+                            info["probes"][:ctl][~same], "1B --shards 1 "
+                            "probes", tie_atol(q, idx))
+        same = same.cpu().numpy()
+        what = "IVFADCIndex's torch engine"
+    else:
+        d_t, l_t, _ = sh.scan(info["queries"][:ctl], info["probes"][:ctl],
+                              info["included"][:ctl], info["term1"][:ctl],
+                              k, "torch", gran, False, None)
+        d_t, l_t = d_t.cpu().numpy(), l_t.cpu().numpy()
+        same = np.ones(ctl, bool)
+        what = f"shard {sh.rank}'s torch engine"
+    for (layout, topk), (d, lab, _, _) in out.items():
+        assert_same(d_t[same], l_t[same], d[:ctl][same], lab[:ctl][same],
+                    f"1B --shards {S} {layout} {topk} vs {what}")
+    seen["torch"] += int(same.sum())
+
+
+def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
+                       what: str, extra: dict) -> None:
+    """K1 and K3 (gran 256) or K2 and K4 (gran 1024) on the schedule
+    ``args`` (the scan wrappers' arguments, gran last): each torch.equal to
+    its plain version, then both timed, with the bound beside them; the
+    record (``extra`` and those numbers) goes under ``key`` in the kernel's
+    entry of ``kernels`` and on a ``tag`` line."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
+    gran, length, code_m = args[-1], args[5], args[2].shape[1]
+    B, S = length.shape
+    for name, wrapper, plain in (
+            (f"adc_scan_slots_gran{gran}", tk.adc_scan_slots,
+             tk.adc_scan_slots_plain),
+            (f"adc_scan_slots_min_gran{gran}", tk.adc_scan_slots_min,
+             tk.adc_scan_slots_min_plain)):
+        got = wrapper(*args)
+        if not torch.equal(got, plain(*args)):
+            raise AssertionError(f"{tag} {name} on {what}: kernel not "
+                                 "torch.equal to its plain version")
+        r = {**extra, "slots": S,
+             "lane_fill": int(length.sum()) / (B * S * gran),
+             "ms": device_ms(lambda w=wrapper: w(*args)),
+             "plain_ms": device_ms(lambda p=plain: p(*args), reps=3,
+                                   warmup=1),
+             **scan_bound(args, got.numel(), code_m + 1,
+                          code_m + (2 if "min" in name else 1))}
+        for krec in kernels:
+            if krec["name"] == name:
+                krec[key] = r
+        print(f"{tag} {name} on {what} (B={B}, {S} slots, lane fill "
+              f"{r['lane_fill']:.3f}): torch.equal to plain; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+        del got
+
+
+def report_onebillion(res: dict, coarse_ms: float, ctl: int) -> None:
+    """Phase 19's [1b] search lines."""
+    for (S, layout), r in res.items():
+        shards = [(p["host_assemble_seconds"], p["search_seconds"])
+                  for p in r["per_shard"]]
+        print(f"[1b] search_1b.py --shards {S} --scan-layout {layout} "
+              f"(nb {r['nb']}, nc {r['nc']}, {r['nq']} queries, nprobe "
+              f"{r['nprobe']}, max_codes {r['max_codes']}, k {r['k']}): "
+              f"coarse {r['coarse_seconds']} s (CUDA events "
+              f"{coarse_ms:.3f} ms); per shard (assembly s, search s of the "
+              f"wide scan) {shards}; codes scanned per query "
+              f"{r['codes_scanned_per_query']:.1f}; device peak "
+              f"{r['peak_gib']} GiB; {r['torch_checked']} query results "
+              f"equal to the torch engine's on the first {ctl}; per top-k "
+              + json.dumps({c: {"R@1/10/100": [v["recall_at_1"],
+                                               v["recall_at_10"],
+                                               v["recall_at_100"]],
+                                "us_per_query": v["us_per_query"],
+                                "slots": v["slots_per_shard"]}
+                            for c, v in r["combos"].items()}), flush=True)
+    c4 = res[4, "quad"]["codes_scanned_per_query"]
+    c1 = res[1, "quad"]["codes_scanned_per_query"]
+    print(f"[1b] codes scanned per query: --shards 4 {c4:.1f} against "
+          f"--shards 1 {c1:.1f} ({c4 / max(c1, 1e-9):.3f}x: the per-shard "
+          "max_codes budget of the JAX tool)", flush=True)
 
 
 if __name__ == "__main__":

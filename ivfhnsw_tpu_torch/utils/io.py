@@ -1,8 +1,11 @@
 """Host-side data helpers and binary vector-file IO, bit-compatible with the
 reference formats. Numpy copies of ``ivfhnsw_tpu/utils/io.py``'s functions,
 kept in the port so that ``ivfhnsw_tpu_torch`` never imports the JAX
-package; where that module calls its native C++ helpers when they are
-built, these take its per-record numpy path.
+package. Where that module calls its native C++ helpers, these call the
+port's bindings of the same helpers (``utils/native.py``: the xvec decode
+of ``read_xvec_fvec``, the series writer and reader of the ``.index``
+files), and take the per-record numpy path, with the same bytes, where
+the library cannot be built.
 
 The reference (its utils.h:59-127) uses two on-disk layouts:
 
@@ -27,6 +30,8 @@ import threading
 from typing import Iterator
 
 import numpy as np
+
+from ivfhnsw_tpu_torch.utils import native
 
 # File extension -> payload dtype, as in the reference.
 XVEC_DTYPES = {
@@ -94,7 +99,14 @@ def read_xvec(path: str, d: int, n: int | None = None, offset: int = 0,
 def read_xvec_fvec(path: str, d: int, n: int | None = None, offset: int = 0,
                    dtype=None) -> np.ndarray:
     """readXvecFvec (reference utils.h:112-127): any xvec payload, promoted
-    to float32."""
+    to float32, by the native decoder when it builds, else by numpy."""
+    if dtype is None:
+        dtype = XVEC_DTYPES[os.path.splitext(path)[1]]
+    if n is None:
+        n = xvec_count(path, d, dtype) - offset
+    out = native.xvec_read_f32(path, d, n, offset, dtype)
+    if out is not None:
+        return out
     return read_xvec(path, d, n, offset, dtype=dtype).astype(np.float32)
 
 
@@ -138,10 +150,52 @@ def write_len_vector(f, data: np.ndarray) -> None:
     f.write(data.tobytes())
 
 
+_SERIES_SLAB: np.ndarray | None = None
+
+
+def _series_slab() -> np.ndarray:
+    """The process's reusable interleave scratch (64 MB, touched once)."""
+    global _SERIES_SLAB
+    if _SERIES_SLAB is None:
+        _SERIES_SLAB = np.empty(64 << 20, np.uint8)
+    return _SERIES_SLAB
+
+
 def write_len_series(f, payload: np.ndarray, counts: np.ndarray) -> None:
     """A series of length-prefixed vectors ([u32 count | payload]*) from a
     flat payload (the records concatenated in order) and the element count
-    of each record: write_len_vector once per record."""
+    of each record (the reference's write loop, IndexIVF_HNSW.cpp:643-654,
+    3 * nc records). The native interleaver fills one reused 64 MB slab
+    at a time, as the JAX package's does (a record larger than the slab
+    is written directly); without the library, :func:`write_len_records`.
+    The bytes are the same either way."""
+    flat = np.ascontiguousarray(payload).reshape(-1)
+    counts = np.asarray(counts, np.int64)
+    if not native.available():
+        write_len_records(f, flat, counts)
+        return
+    esize = flat.dtype.itemsize
+    slab = _series_slab()
+    byte_cum = np.zeros(counts.size + 1, np.int64)
+    np.cumsum(counts * esize + 4, out=byte_cum[1:])
+    lo = 0
+    while lo < counts.size:
+        p_lo = (byte_cum[lo] - 4 * lo) // esize
+        if byte_cum[lo + 1] - byte_cum[lo] > slab.size:
+            write_len_vector(f, flat[p_lo:p_lo + int(counts[lo])])
+            lo += 1
+            continue
+        hi = int(np.searchsorted(byte_cum, byte_cum[lo] + slab.size,
+                                 side="right")) - 1
+        p_hi = (byte_cum[hi] - 4 * hi) // esize
+        f.write(memoryview(native.lenvec_interleave(
+            flat[p_lo:p_hi], counts[lo:hi], esize, out=slab)))
+        lo = hi
+
+
+def write_len_records(f, payload: np.ndarray, counts: np.ndarray) -> None:
+    """:func:`write_len_series` in numpy: write_len_vector once per
+    record."""
     flat = np.ascontiguousarray(payload).reshape(-1)
     pos = 0
     for c in np.asarray(counts, np.int64):
@@ -151,9 +205,18 @@ def write_len_series(f, payload: np.ndarray, counts: np.ndarray) -> None:
 
 def read_len_series(buf: np.ndarray, pos: int, n: int, dtype):
     """Parse n length-prefixed records ([u32 count | count * dtype]) from a
-    u8 buffer at ``pos``, record by record. Returns (flat payload (a copy),
-    counts [n] int64, end position). Raises ValueError when the buffer ends
+    u8 buffer at ``pos``: (flat payload (a copy), counts [n] int64, end
+    position), by the native parser when it builds, else
+    :func:`read_len_records`. Raises ValueError when the buffer ends
     inside a record."""
+    out = native.lenvec_series(buf, pos, n, dtype)
+    if out is not None:
+        return out
+    return read_len_records(buf, pos, n, dtype)
+
+
+def read_len_records(buf: np.ndarray, pos: int, n: int, dtype):
+    """:func:`read_len_series` in numpy, record by record."""
     dt = np.dtype(dtype)
     counts = np.empty(n, np.int64)
     parts = []

@@ -317,14 +317,21 @@ def test_driver_refuses_unported_flags(argv, monkeypatch, tmp_path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, ivfhnsw_tpu_torch, ivfhnsw_tpu_torch.drivers."
-            "ivfadc_eval, ivfhnsw_tpu_torch.drivers.grouping_eval, "
-            "ivfhnsw_tpu_torch.drivers.enn, "
-            "ivfhnsw_tpu_torch.drivers.vector_add, "
-            "ivfhnsw_tpu_torch.drivers.disk_rerank, "
-            "ivfhnsw_tpu_torch.ops.cuda.build, ivfhnsw_tpu_torch.ops.opq; "
+    """Every module of the port (found by pkgutil.walk_packages, so a new
+    one cannot be missed) and chip_smoke import without jax, the JAX
+    package or the root bench.py (which imports jax)."""
+    code = ("import importlib, pkgutil, sys, ivfhnsw_tpu_torch; "
+            "names = [m.name for m in pkgutil.walk_packages("
+            "ivfhnsw_tpu_torch.__path__, 'ivfhnsw_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "import chip_smoke; "
+            "want = {'parallel.pipeline', 'parallel.sharded', "
+            "'utils.checkpoint', 'utils.native', 'tools.scale3', "
+            "'tools.build_1b', 'tools.search_1b', 'drivers.mkindex'}; "
+            "assert {'ivfhnsw_tpu_torch.' + w for w in want} <= set(names); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'ivfhnsw_tpu' not in sys.modules")
+            "assert 'ivfhnsw_tpu' not in sys.modules, 'ivfhnsw_tpu'; "
+            "assert 'bench' not in sys.modules, 'bench imported'")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

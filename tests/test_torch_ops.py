@@ -196,6 +196,35 @@ def test_kmeans_batched_quality_matches_jax():
     assert abs(t_mse - j_mse) <= 0.05 * j_mse, (t_mse, j_mse)
 
 
+@pytest.mark.parametrize("empties", [False, True])
+def test_pq_train_from_init_matches_jax(empties):
+    """ProductQuantizer.train(init=) in both packages from the same
+    codebooks. 256 tight clusters a subspace and init beside their centres:
+    no cluster empties, so the codebooks are equal (to f32 summation
+    order). With every other codeword a copy of its neighbour, half the
+    clusters start empty and the split rule moves them: MSE within 5%
+    (D2)."""
+    rng = np.random.RandomState(13)
+    M, dsub, n = 4, 4, 8192
+    centers = rng.randn(M, 256, dsub).astype(np.float32) * 10
+    pick = np.concatenate([np.arange(256), rng.randint(0, 256, n - 256)])
+    x = (centers[:, pick].transpose(1, 0, 2).reshape(n, M * dsub)
+         + rng.randn(n, M * dsub).astype(np.float32) * 0.05)
+    init = centers + rng.randn(M, 256, dsub).astype(np.float32) * 0.01
+    if empties:
+        init[:, 1::2] = init[:, 0::2]
+    jq = jpq.ProductQuantizer(M * dsub, M).train(
+        jax.random.PRNGKey(0), x, niter=4, init=jnp.asarray(init))
+    tq = tpq.ProductQuantizer(M * dsub, M).train(
+        torch.Generator().manual_seed(0), _t(x), niter=4, init=_t(init))
+    jc, tc = np.asarray(jq.codebooks), tq.codebooks.numpy()
+    if not empties:
+        np.testing.assert_allclose(tc, jc, rtol=1e-5, atol=1e-5)
+    j_mse = float(((np.asarray(jq.decode(jq.encode(x))) - x) ** 2).mean())
+    t_mse = float(((tq.decode(tq.encode(_t(x))).numpy() - x) ** 2).mean())
+    assert abs(t_mse - j_mse) <= 0.05 * j_mse, (t_mse, j_mse)
+
+
 def test_kmeanspp_init_picks_data_points():
     x = _clustered(10, 500, 8)
     c = tk.kmeanspp_init(torch.Generator().manual_seed(0), _t(x), 32).numpy()
