@@ -100,14 +100,17 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 13-16. trace and counters, ORCV, the device-resident build with
    checkpoints and vector_split, the SIFT-like corpus (see their functions).
 17. the large-nc path at the JAX bench's scale2 point (bench.py:66-75,
-   :957-1075), nothing cut: 134,217,728 x 128d drawn on the card from the
-   bench's two-level corpus, nc=2^17; centroids by hierarchical seeding and
-   4 Lloyd rounds over 2M rows, PQ on 262,144; the routed two-level
-   assigner (w=4, 2048 supers) adopted if its match rate against exact
-   assignment on 32,768 rows is >= 0.98; 128 batches of 1,048,576 through
-   add_batch_device with the exact top-1 ground truth of 1024 queries
-   merged per batch; finalize; each stage timed, host RSS and device peak;
-   one Lloyd pass split into seeding, score GEMMs, sweep and segment sums.
+   :957-1075), nothing cut, built by the port's bench tool
+   (tools/bench.py::build_scale2, in a temporary cache): 134,217,728 x
+   128d drawn on the card from the bench's two-level corpus, nc=2^17;
+   centroids by hierarchical seeding and 4 Lloyd rounds over 2M rows, PQ
+   on 262,144; the routed two-level assigner (w=4, 2048 supers) adopted if
+   its match rate against exact assignment on 32,768 rows is >= 0.98; 128
+   batches of 1,048,576 through add_batch_device with the exact top-1
+   ground truth of 1024 queries merged per batch; finalize; each stage
+   timed, host RSS and device peak; beside the build, one Lloyd pass split
+   into seeding, score GEMMs, sweep and segment sums, and batch 0 assigned
+   routed and exact.
    Then the routed coarse structure: probe overlap against exact at w =
    16, 32, 64; w = n_super equal to exact but at f32 ties, in its probes
    and in a search that admits every probe; the routed side table's row
@@ -163,6 +166,22 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    coarse ms, per-shard assembly and search seconds, µs/query, codes
    scanned per query at 4 against 1 shard (the JAX tool's per-shard
    max_codes budget), R@1/10/100. ``--only 19`` runs just this phase.
+20. the bench tool's stages ([bench20] lines; ivfhnsw_tpu_torch/tools/
+   bench.py in process): ``deep`` (d=96, PQ16 so dsub=6, nc=2^17, nprobe
+   128, max_codes 30k, 2048 queries) and ``grouping_scale`` (nc=2^17,
+   nsubc 64, OPQ, pruning, max_codes 100k, 1024 queries) at the tool's
+   sizes, nothing cut (20M and 33.5M vectors); each built by the tool's
+   builder (seconds by stage) and evaluated by its stage function (the
+   exact-ADC ceiling and its seconds, R@1/10/100, sustained and
+   single-launch µs/query), the scan kernel required to launch; then both
+   slot widths with wide and two-phase top-k (deep) or pruning on and off
+   (grouping), each through the tool's timed_qps with the scan kernels'
+   launch counts required to grow, results equal across widths (and
+   top-k), 64 queries equal to engine "torch"; K1-K4 (deep) and K5/K6
+   (grouping_scale) torch.equal to their plain versions on that stage's
+   schedule, timed, bound beside them (records gain "deep" / "gscale").
+   Phase 17 also prints the scale2 exact-ADC ceiling beside its recall.
+   ``--only 20`` runs just this phase.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -212,12 +231,11 @@ FLAGSHIP = dict(nsubc=64, do_opq=True, do_pruning=True)
 SEARCH_BATCH = 8192  # IVFADCIndex.search's default batch
 LAB_SOURCE = "ivfhnsw_tpu_torch/csrc/scan_lab.cu"
 # Phase 17: the JAX bench's scale2 point (bench.py:66-75, :957-1075,
-# :3130-3195), nothing cut; phase 17b: its scale3 corpus at nc=2^20, coarse
-# selection only (bench.py:76-83, :1078-1120, :1170-1185).
-SCALE2 = dict(nb=134_217_728, nc=131_072, nq=1024, d=128, code_size=16,
-              k=10, nprobe=128, max_codes=100_000, n_super=2048, assign_w=4,
-              learn=2_000_000, pq_learn=262_144, batch=1_048_576,
-              match_sample=32_768, niter=4, ctl=64)
+# :3130-3195) built by the port's tools/bench.py at its sizes, nothing cut;
+# k and the queries held to the torch engine here. Phase 17b: its scale3
+# corpus at nc=2^20, coarse selection only (bench.py:76-83, :1078-1120,
+# :1170-1185).
+SCALE2 = dict(k=10, ctl=64)
 COARSE20 = dict(nc=1_048_576, learn=8_388_608, nq=1024, d=128, nprobe=128,
                 n_super=2048, match_sample=32_768)
 OVERLAP_TARGET = 0.95
@@ -537,10 +555,10 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b,18,19`` builds the kernels and runs
-    only the named large-nc phases (18: its scale2 part, 18a-18b, after
-    phase 17; 19: the 1B path; a partial run: no kernels line, no
-    result)."""
+    """The smoke run; ``--only 17,17b,18,19,20`` builds the kernels and
+    runs only the named large-nc phases (18: its scale2 part, 18a-18b,
+    after phase 17; 19: the 1B path; 20: the bench stages; a partial run:
+    no kernels line, no result)."""
     import torch
     t_command = time.perf_counter()
     only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
@@ -598,6 +616,9 @@ def main(argv: list) -> int:
         if "19" in only:
             run_onebillion(device, ONE_B, pl, [])
             clock.mark("19")
+        if "20" in only:
+            run_bench20(device, pl, [])
+            clock.mark("20")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -618,9 +639,9 @@ def main(argv: list) -> int:
 
 def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         s20: dict = COARSE20, onebillion: dict = ONE_B) -> list:
-    """Phases 3-19 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
-    ``s2`` / ``s20`` / ``onebillion``) over the files ``files``; returns
-    the kernel result records."""
+    """Phases 3-20 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
+    ``s2`` / ``s20`` / ``onebillion``; phase 20 at the bench tool's) over
+    the files ``files``; returns the kernel result records."""
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
     from ivfhnsw_tpu_torch.drivers import ivfadc_eval
@@ -847,6 +868,11 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         torch.cuda.empty_cache()
     run_onebillion(device, onebillion, pl, kernels)
     clock.mark("19")
+    # 20. the bench tool's deep and grouping_scale stages
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    run_bench20(device, pl, kernels)
+    clock.mark("20")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -2149,46 +2175,43 @@ def lloyd_split(index, learn: "torch.Tensor") -> dict:
 
 
 def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
-    """Phase 17 at the sizes ``s``: build (hierarchical seeding, routed
-    assignment through add_batch_device, exact ground truth), coarse
-    selection (routed overlaps at w = 16, 32, 64 and w = n_super), every
-    coarse mode searched wide and two-phase at both slot widths under the
-    profiled scan budget, and each scan kernel against its plain version on
-    this point's schedule. Returns the numbers the approx decision reads."""
+    """Phase 17: the bench tool's scale2 builder (``build_scale2``, in a
+    temporary cache) with the build's diagnostics beside it (one Lloyd pass
+    split, batch 0 assigned routed and exact), coarse selection (routed
+    overlaps at w = 16, 32, 64 and w = n_super), every coarse mode searched
+    wide and two-phase at both slot widths under the profiled scan budget,
+    and each scan kernel against its plain version on this point's
+    schedule; ``s`` holds k and ctl, the queries held to the torch engine.
+    Returns the numbers the approx decision reads."""
+    import tempfile
+
     import torch
     from ivfhnsw_tpu_torch.drivers.common import _sync
-    from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
     from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.ops.routed_coarse import routed_select_ext
-    from ivfhnsw_tpu_torch.tools.scale3 import MesoCorpus
-    from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
+    from ivfhnsw_tpu_torch.tools import bench
+    from ivfhnsw_tpu_torch.tools.build_1b import routed_match
+    from ivfhnsw_tpu_torch.utils.config import SearchParams
     from ivfhnsw_tpu_torch.utils.recall import recall_at_k
     from ivfhnsw_tpu_torch.utils.roofline import scan_bound
-
-    stages = {}
 
     def stage(name, fn):
         return timed(stages, name, fn, device)
 
-    def add_time(name, fn):
-        t = time.perf_counter()
-        r = fn()
-        _sync(device)
-        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t
-        return r
-
     mem_reset(device)
-    nb, nc, B, P = s["nb"], s["nc"], s["nq"], s["nprobe"]
-    corpus = stage("corpus_setup", lambda: MesoCorpus(device, nc, s["d"], 7))
-    q = corpus.gen(77, B)
-    q_np = q.cpu().numpy()
-    index = IVFADCIndex(IndexConfig(d=s["d"], nc=nc,
-                                    code_size=s["code_size"]), device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    learn = stage("learn_draw", lambda: corpus.gen(78, s["learn"]))
-    stage("centroids", lambda: index.train_centroids(gen, learn,
-                                                     niter=s["niter"]))
+    S = bench.sizes(False)
+    spec = bench.scale2_spec(S, device)
+    nb, nc, B, P = spec["nb"], spec["nc"], spec["nq"], S["S2_NPROBE"]
+    s = {**s, "nq": B, "nprobe": P, "max_codes": S["S2_MC"]}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s2_") as cache:
+        index, q_np, gt, meta = bench.build_scale2(S, device, cache)
+    stages = {"build_scale2": time.perf_counter() - t,
+              **meta["stage_seconds"]}
+    q = torch.tensor(q_np, device=device)
+    corpus = spec["corpus"]()
+    learn = corpus.gen(spec["seeds"]["learn"], spec["learn"])
     ll = lloyd_split(index, learn)
     del learn
     print(f"[scale2] lloyd split (CUDA events): seed {ll['seed_s']:.3f} s; "
@@ -2196,54 +2219,20 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
           f"a pass, {ll['block_c']} centroids a step): score GEMMs "
           f"{ll['gemm_ms']:.3f} ms, whole assignment sweep "
           f"{ll['sweep_ms']:.3f} ms, segment sums {ll['sums_ms']:.3f} ms; "
-          f"a pass {ll['pass_s']:.3f} s, seed + {s['niter']} passes "
-          f"{ll['seed_s'] + s['niter'] * ll['pass_s']:.3f} s against the "
-          f"centroids stage {stages['centroids']:.3f} s", flush=True)
-    pq_learn = corpus.gen(79, s["pq_learn"])
-    stage("pq", lambda: index.train_pq(gen, pq_learn))
-    del pq_learn
-    stage("assigner_setup", lambda: index.enable_fast_assign(
-        w=s["assign_w"], n_super=s["n_super"],
-        generator=torch.Generator(device=device).manual_seed(80)))
-    sample = corpus.gen(81, s["match_sample"])
-    exact_keys = stage("match_exact", lambda: index._assign_device_exact(
-        sample))
-    routed_keys = stage("match_routed",
-                        lambda: index._fast_assigner.assign_device(sample))
-    match = float((routed_keys == exact_keys).mean())
-    mode = "routed" if match >= 0.98 else "exact"
-    if mode == "exact":
-        print(f"[scale2] routed match rate {match:.4f} < 0.98: the build "
-              "assigns exactly", flush=True)
-        index._fast_assigner = None
-    del sample
-
-    best_d = torch.full((B,), float("inf"), device=device)
-    best_i = torch.zeros(B, dtype=torch.int64, device=device)
-    batch, gt_blk = s["batch"], 262_144
-    for bi, off in enumerate(range(0, nb, batch)):
-        blk = add_time("draw", lambda: corpus.gen(1000 + bi,
-                                                  min(batch, nb - off)))
-        ids = np.arange(off, off + blk.shape[0], dtype=np.int32)
-        if bi == 0:       # one batch assigned both ways, for their times
-            add_time("assign_routed_batch0", lambda: index._assign_t(blk))
-            add_time("assign_exact_batch0",
-                     lambda: index._assign_exact_t(blk))
-        add_time("add_batch_device", lambda: index.add_batch_device(blk, ids))
-
-        def gt_step():
-            for g0 in range(0, blk.shape[0], gt_blk):
-                x = blk[g0:g0 + gt_blk]
-                dist = (q @ x.T).mul_(-2.0).add_((x * x).sum(1)[None, :])
-                d, i = dist.min(dim=1)
-                better = d < best_d
-                best_d.copy_(torch.where(better, d, best_d))
-                best_i.copy_(torch.where(better, i + off + g0, best_i))
-        add_time("ground_truth", gt_step)
-        del blk
-    gt = best_i.cpu().numpy()[:, None]
+          f"a pass {ll['pass_s']:.3f} s, seed + {bench.STREAM_NITER} passes "
+          f"{ll['seed_s'] + bench.STREAM_NITER * ll['pass_s']:.3f} s "
+          f"against the centroids stage {stages['centroids']:.3f} s",
+          flush=True)
+    # batch 0 assigned both ways, for their times
+    r = spec["routed"]
+    sample = corpus.gen(r["sample_seed"], r["sample_rows"])
+    stage("routed_match", lambda: routed_match(index, sample, r["n_super"],
+                                               r["seed"]))
+    blk = corpus.gen(spec["seeds"]["base"], min(bench.BATCH, nb))
+    stage("assign_routed_batch0", lambda: index._assign_t(blk))
+    stage("assign_exact_batch0", lambda: index._assign_exact_t(blk))
     index._fast_assigner = None
-    stage("finalize", index.finalize)
+    del sample, blk
     st = index.store
     stage("upload", lambda: (st.codes_t, st.ids_t, st.norm_codes_t,
                              st.list_offsets_t))
@@ -2254,14 +2243,16 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
         dim=1).max()) if bool(empty.any()) else 0.0
     rss = host_rss_gib()
     store_gb = (st.codes.nbytes + st.ids.nbytes + st.norm_codes.nbytes) / 1e9
-    print(f"[scale2] build {nb} x {s['d']} at nc={nc}, corpus bench.py "
-          f"scale2 (RandomState(7) supers/mids/mix, a generator seed per "
-          f"batch): routed match rate {match:.4f} on {s['match_sample']} "
-          f"rows ({mode} assignment), lists mean {sizes.mean():.1f} max "
-          f"{sizes.max()} empty {int((sizes == 0).sum())} (their centroids "
-          f"within {near:.4f} of the largest list's), store "
-          f"{store_gb:.3f} GB; host RSS {rss[0]:.2f} GiB (peak "
-          f"{rss[1]:.2f}), device peak {peak_gib(device)} GiB; stages_s "
+    print(f"[scale2] bench.build_scale2: {nb} x {index.d} at nc={nc}, "
+          f"corpus bench.py scale2 (RandomState(7) supers/mids/mix, a "
+          f"generator seed per batch): routed match rate "
+          f"{meta['routed_match_rate']:.4f} on {r['sample_rows']} rows "
+          f"({meta['assignment_mode']} assignment), lists mean "
+          f"{sizes.mean():.1f} max {sizes.max()} empty "
+          f"{int((sizes == 0).sum())} (their centroids within {near:.4f} of "
+          f"the largest list's), store {store_gb:.3f} GB; host RSS "
+          f"{rss[0]:.2f} GiB (peak {rss[1]:.2f}), device peak "
+          f"{peak_gib(device)} GiB; stages_s "
           + json.dumps({k: round(v, 3) for k, v in stages.items()}),
           flush=True)
 
@@ -2442,6 +2433,15 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
     print(f"[scale2] R@100 at k=100 (exact coarse) {r100:.4f}; budgeted "
           f"search equals unbudgeted on {B} queries; fused equals the torch "
           f"engine on {ctl} queries", flush=True)
+    t = time.perf_counter()
+    ceil = bench.exact_adc_ceiling(index, q_np, gt, ks=(1, 10, 100),
+                                   blk=131_072)[0]
+    _sync(device)
+    print(f"[scale2] exact-ADC ceiling (tools/bench.py, all {st.ntotal} "
+          f"codes, {B} queries) R@1 {ceil[1]:.4f} R@10 {ceil[10]:.4f} R@100 "
+          f"{ceil[100]:.4f} in {time.perf_counter() - t:.2f} s; the search "
+          f"(exact coarse, quad wide) R@1 {rec['exact'][1]:.4f} R@10 "
+          f"{rec['exact'][10]:.4f} R@100 {r100:.4f}", flush=True)
 
     # each scan kernel on this point's schedule for one batch
     prm = SearchParams(**base, coarse_mode="exact")
@@ -2815,7 +2815,6 @@ def run_sharded_primary(device, cfg, ds, index, gi, pl: PhaseLaunches,
     import torch
     from ivfhnsw_tpu_torch.drivers.common import _sync
     from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
-    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
     from ivfhnsw_tpu_torch.ops.grouping import (group_terms, pruning_sums,
                                                 query_terms)
@@ -2825,7 +2824,6 @@ def run_sharded_primary(device, cfg, ds, index, gi, pl: PhaseLaunches,
                                                      host_slice,
                                                      merge_host_spills)
     from ivfhnsw_tpu_torch.utils.checkpoint import load_sharded, save_sharded
-    from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
 
     g8 = make_mesh(devices=[device] * 8)
     q_np = ds.queries[:SEARCH_BATCH]
@@ -2900,26 +2898,9 @@ def run_sharded_primary(device, cfg, ds, index, gi, pl: PhaseLaunches,
         gran = gsh.scan_gran()
         gsh.search(q_np, prm)
         rank = max(gsh.last_slots, key=gsh.last_slots.get)
-        args = (*gsh.scan_inputs(q_np, prm, rank), gran)
-        got = tg.grouping_scan_slots(*args)
-        if not torch.equal(got, tg.grouping_scan_slots_plain(*args)):
-            raise AssertionError("sharded grouping kernel not torch.equal to "
-                                 "its plain version")
-        r = {"shard": rank, "slots": args[6].shape[1],
-             "ms": device_ms(lambda: tg.grouping_scan_slots(*args)),
-             "plain_ms": device_ms(lambda: tg.grouping_scan_slots_plain(
-                 *args), reps=3, warmup=1)}
-        r.update({k: v for k, v in grouping_scan_bound(args[:-1], got,
-                                                       gran).items()
-                  if k not in ("kept_lanes", "filled_lanes")})
-        for krec in kernels:
-            if krec["name"] == f"grouping_scan_slots_gran{gran}":
-                krec["sharded"] = r
-        print(f"[sharded] grouping_scan_slots_gran{gran} on shard {rank}'s "
-              f"schedule ({r['slots']} slots): torch.equal to plain; kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms", flush=True)
-        del args, got
+        check_grouping_kernel((*gsh.scan_inputs(q_np, prm, rank), gran),
+                              kernels, "sharded", "[sharded]",
+                              f"shard {rank}'s schedule", {"shard": rank})
     gi.scan_layout = "auto"
     del gsh
 
@@ -3232,6 +3213,39 @@ def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
         del got
 
 
+def check_grouping_kernel(args: tuple, kernels: list, key: str, tag: str,
+                          what: str, extra: dict) -> None:
+    """K5 (gran 256) or K6 (gran 1024) on the schedule ``args`` (the
+    grouping wrapper's arguments, gran last): torch.equal to its plain
+    version, then both timed, with the bound beside them; the record
+    (``extra`` and those numbers) goes under ``key`` in the kernel's entry
+    of ``kernels`` and on a ``tag`` line."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
+    gran = args[-1]
+    name = f"grouping_scan_slots_gran{gran}"
+    got = tg.grouping_scan_slots(*args)
+    if not torch.equal(got, tg.grouping_scan_slots_plain(*args)):
+        raise AssertionError(f"{tag} {name} on {what}: kernel not "
+                             "torch.equal to its plain version")
+    b = grouping_scan_bound(args[:-1], got, gran)
+    kept, filled = b.pop("kept_lanes"), b.pop("filled_lanes")
+    r = {**extra, "slots": args[6].shape[1],
+         "lane_fill": filled / got.numel(), "unpruned": kept / max(filled, 1),
+         "ms": device_ms(lambda: tg.grouping_scan_slots(*args)),
+         "plain_ms": device_ms(lambda: tg.grouping_scan_slots_plain(*args),
+                               reps=3, warmup=1), **b}
+    for krec in kernels:
+        if krec["name"] == name:
+            krec[key] = r
+    print(f"{tag} {name} on {what} (B={got.shape[0]}, {r['slots']} slots, "
+          f"lane fill {r['lane_fill']:.3f}, unpruned {r['unpruned']:.3f} of "
+          f"filled): torch.equal to plain; kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}", flush=True)
+
+
 def report_onebillion(res: dict, coarse_ms: float, ctl: int) -> None:
     """Phase 19's [1b] search lines."""
     for (S, layout), r in res.items():
@@ -3257,6 +3271,133 @@ def report_onebillion(res: dict, coarse_ms: float, ctl: int) -> None:
     print(f"[1b] codes scanned per query: --shards 4 {c4:.1f} against "
           f"--shards 1 {c1:.1f} ({c4 / max(c1, 1e-9):.3f}x: the per-shard "
           "max_codes budget of the JAX tool)", flush=True)
+
+
+def run_bench20(device, pl: PhaseLaunches, kernels: list) -> dict:
+    """Phase 20: the ``deep`` and ``grouping_scale`` stages of
+    ivfhnsw_tpu_torch/tools/bench.py in process at the tool's sizes
+    (nothing cut: 20M and 33.5M vectors); returns each stage's record."""
+    import tempfile
+    from ivfhnsw_tpu_torch.tools import bench
+    S = bench.sizes(False)
+    with tempfile.TemporaryDirectory(prefix="bench20_") as cache:
+        return {name: bench20_stage(device, name, S, cache, pl, kernels)
+                for name in ("deep", "grouping_scale")}
+
+
+def bench20_stage(device, name: str, S: dict, cache: str,
+                  pl: PhaseLaunches, kernels: list) -> dict:
+    """One phase-20 stage: the tool's builder and evaluation (the stage's
+    main path, its scan kernel required to launch), then every slot width
+    with wide and two-phase top-k (deep) or pruning on and off (grouping),
+    sustained and single-launch µs/query through the tool's timed_qps, the
+    scan kernels required to launch in each; results equal across widths
+    and top-k; 64 queries equal to engine "torch"; each scan kernel
+    torch.equal to its plain version on this stage's schedule, timed,
+    under the record key "deep" or "gscale"."""
+    import torch
+    from ivfhnsw_tpu_torch.drivers.common import _sync
+    from ivfhnsw_tpu_torch.tools import bench
+    from ivfhnsw_tpu_torch.utils.config import SearchParams
+    from ivfhnsw_tpu_torch.utils.recall import recall_at_k
+    build, evaluate = bench.STAGES[name]
+    grouping = name == "grouping_scale"
+    pre, key = (("GS_", "gscale") if grouping else ("DEEP_", "deep"))
+    mem_reset(device)
+    t = time.perf_counter()
+    idx, q_np, gt, meta = build(S, device, cache)
+    _sync(device)
+    build_s = time.perf_counter() - t
+    scan = "grouping_scan_slots" if grouping else "adc_scan_slots"
+    f = pl.counted("20", None, [scan], lambda: evaluate(
+        idx, q_np, gt, meta, S, cache, False), f"{name} stage")
+    fp = name + "_"
+    st = idx._ensure_store()
+    lists = (st.list_sizes().reshape(-1, S["NSUBC"]).sum(1) if grouping
+             else st.list_sizes())
+    print(f"[bench20] {name}: nb {S[pre + 'NB']}, d {idx.d}, nc "
+          f"{S[pre + 'NC']}" + (f", nsubc {S['NSUBC']}, OPQ" if grouping
+                               else "") + f"; lists mean "
+          f"{lists.mean():.2f} max {lists.max()} empty "
+          f"{int((lists == 0).sum())}; build {build_s:.2f} s (stages "
+          + json.dumps({k: round(v, 2) for k, v in
+                        meta["stage_seconds"].items()})
+          + f"; assignment {meta['assignment_mode']}); ceiling R@1/10/100 "
+          f"{[round(f[fp + f'ceiling_at_{k}'], 4) for k in (1, 10, 100)]} "
+          f"in {f[fp + 'ceiling_seconds']:.2f} s; search R@1/10/100 "
+          f"{[round(f[fp + f'recall_at_{k}'], 4) for k in (1, 10, 100)]}; "
+          f"default layout {idx._resolve_layout()}: sustained "
+          f"{f[fp + 'us_per_query']:.3f} us/query (depth {bench.DEPTH}), "
+          f"single launch {f[fp + 'us_per_query_single_launch']:.3f}; "
+          f"device peak {peak_gib(device)} GiB", flush=True)
+    base = dict(k=S["K"], nprobe=S[pre + "NPROBE"], max_codes=S[pre + "MC"])
+    variants = ((True, False) if grouping else ("wide", "twophase"))
+    res = {}
+    for layout in ("chunk", "quad"):
+        idx.scan_layout = layout
+        gran = idx.scan_gran()
+        prm, dem = bench.profiled(idx, q_np, SearchParams(
+            **base, do_pruning=grouping))
+        for v in variants:
+            if grouping:
+                prm.do_pruning = v
+            else:
+                idx.scan_topk = v
+            need = [scan] + (["adc_scan_slots_min"] if v == "twophase"
+                             else [])
+            qps, labels, single = pl.counted(
+                "20", gran, need, lambda: bench.timed_qps(idx, q_np, prm),
+                f"{name} {layout} {v}")
+            d, l = idx.search(q_np, prm)
+            if not np.array_equal(l, labels):
+                raise AssertionError(f"{name} {layout} {v}: timed_qps's "
+                                     "labels differ from search's")
+            res[layout, v] = (d, l, 1e6 / qps, single, dem)
+    idx.scan_topk = "auto"
+    for v in variants:
+        d0, l0 = res["quad", v][:2]
+        if d0.shape != (len(q_np), S["K"]) or not np.isfinite(d0).all():
+            raise AssertionError(f"{name} {v}: bad distances {d0.shape}")
+        assert_same(d0, l0, *res["chunk", v][:2], f"{name} chunk vs quad "
+                    f"({v})")
+        if not grouping:
+            assert_same(d0, l0, *res["quad", "wide"][:2],
+                        f"{name} {v} vs wide")
+    prm.do_pruning = grouping
+    prm.scan_budget = res["quad", variants[0]][4] * idx.scan_gran()
+    d_f, l_f = idx.search(q_np[:64], prm)
+    idx.engine = "torch"
+    d_t, l_t = idx.search(q_np[:64], prm)
+    idx.engine = "auto"
+    assert_same(d_t, l_t, d_f, l_f, f"{name} fused vs torch engine")
+    print(f"[bench20] {name}: per slot width and "
+          + ("pruning" if grouping else "top-k") + " (us/query sustained, "
+          "single launch, profiled slots, R@1/R@10) " + json.dumps(
+              {f"{c[0]}/{c[1]}": [round(r[2], 3), round(r[3], 3), r[4]]
+               + [round(x, 4) for x in
+                  recall_at_k(r[1], gt, ks=(1, 10)).values()]
+               for c, r in res.items()}) + "; equal across widths"
+          + ("" if grouping else " and top-k") + "; 64 queries equal to "
+          "engine torch", flush=True)
+    q = torch.tensor(q_np, device=device)
+    for layout in ("chunk", "quad"):
+        idx.scan_layout = layout
+        gran = idx.scan_gran()
+        prm.scan_budget = res[layout, variants[0]][4] * gran
+        if not grouping:
+            check_scan_kernels((*idx.scan_inputs(q, prm, gran), gran),
+                               kernels, key, "[bench20]",
+                               f"{name}'s schedule", {"nb": S[pre + "NB"]})
+            continue
+        check_grouping_kernel((*idx.grouping_scan_inputs(q, prm, gran),
+                               gran), kernels, key, "[bench20]",
+                              f"{name}'s schedule", {"nb": S[pre + "NB"]})
+    idx.scan_layout = "auto"
+    idx.release_device()
+    del idx, q
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return f
 
 
 if __name__ == "__main__":

@@ -44,8 +44,10 @@ def l2sqr_pairwise(x: torch.Tensor, y: torch.Tensor,
     if y_sqnorm is None:
         y_sqnorm = (y * y).sum(-1)
     x_sqnorm = (x * x).sum(-1)
-    ip = torch.matmul(x, y.transpose(-1, -2))
-    return x_sqnorm.unsqueeze(-1) - 2.0 * ip + y_sqnorm.unsqueeze(-2)
+    # in place, bit for bit x_sqnorm - 2 * ip + y_sqnorm (-2 * ip + a is
+    # a - 2 * ip exactly): no [..., n, m] temporaries
+    ip = torch.matmul(x, y.transpose(-1, -2)).mul_(-2.0)
+    return ip.add_(x_sqnorm.unsqueeze(-1)).add_(y_sqnorm.unsqueeze(-2))
 
 
 def inner_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,10 @@ from ivfhnsw_tpu_torch.ops.distances import assign_top1, l2sqr_pairwise
 from ivfhnsw_tpu_torch.ops.segment import segment_sum
 
 KMEANSPP_MAX_K = 8192
+# Distances per assignment step of kmeans_batched on the CPU: a [B, rows, k]
+# block of 16 MB stays in cache, and a sweep takes half the time of one
+# [B, n, k] block. On the card the whole block is one step.
+CPU_ASSIGN_ELEMS = 1 << 22
 
 
 def _round_up(x: int, m: int) -> int:
@@ -237,8 +241,12 @@ def kmeans_batched(generator: torch.Generator, data: torch.Tensor, k: int,
         centroids = init.float()
     base = (torch.arange(B, device=data.device) * k)[:, None]
     flat_x = data.reshape(B * n, d)
+    step = (max(1, CPU_ASSIGN_ELEMS // (B * k)) if data.device.type == "cpu"
+            else n)
     for _ in range(niter):
-        idx = l2sqr_pairwise(data, centroids).argmin(dim=-1)    # [B, n]
+        idx = torch.cat([l2sqr_pairwise(data[:, o:o + step], centroids
+                                        ).argmin(dim=-1)
+                         for o in range(0, n, step)], dim=1)    # [B, n]
         sums, counts = _sums_and_counts(flat_x, (idx + base).reshape(-1),
                                         B * k)
         centroids = _update_with_split(sums.view(B, k, d),

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ivfhnsw_tpu_torch.ops.kmeans import kmeans_batched
+from ivfhnsw_tpu_torch.ops.kmeans import CPU_ASSIGN_ELEMS, kmeans_batched
 from ivfhnsw_tpu_torch.utils import faiss_io
 
 # Rows encoded per step: bounds the [M, rows, ksub] f32 distance temp to
@@ -22,16 +22,20 @@ ENCODE_ROWS = 65536
 
 def _pq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """x [n, d], codebooks [M, ksub, dsub] -> codes [n, M] uint8, encoded in
-    pieces of ENCODE_ROWS rows."""
+    pieces of ENCODE_ROWS rows (on the CPU, at most CPU_ASSIGN_ELEMS
+    distances a piece)."""
     n, d = x.shape
     M, ksub, dsub = codebooks.shape
+    step = ENCODE_ROWS
+    if x.device.type == "cpu":
+        step = min(step, max(1, CPU_ASSIGN_ELEMS // (M * ksub)))
     cb_sq = (codebooks * codebooks).sum(-1)                   # [M, ksub]
     out = torch.empty((n, M), dtype=torch.uint8, device=x.device)
-    for s in range(0, n, ENCODE_ROWS):
-        xs = x[s:s + ENCODE_ROWS].reshape(-1, M, dsub).transpose(0, 1)
+    for s in range(0, n, step):
+        xs = x[s:s + step].reshape(-1, M, dsub).transpose(0, 1)
         ip = torch.bmm(xs, codebooks.transpose(1, 2))         # [M, r, ksub]
         dists = cb_sq[:, None, :] - 2.0 * ip                  # + ||x||^2 (const)
-        out[s:s + ENCODE_ROWS] = dists.argmin(dim=-1).T.to(torch.uint8)
+        out[s:s + step] = dists.argmin(dim=-1).T.to(torch.uint8)
     return out
 
 

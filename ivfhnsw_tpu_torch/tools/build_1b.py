@@ -83,18 +83,31 @@ class Stages:
         return r
 
 
+def routed_match(idx, sample: torch.Tensor, n_super: int, seed: int
+                 ) -> float:
+    """Set up the routed two-level assigner on ``idx`` (w=4, ``n_super``
+    super-clusters, generator seed ``seed``) and return the share of
+    ``sample`` that it assigns as the exact sweep does: the rate that
+    MATCH_GATE is held against."""
+    idx.enable_fast_assign(w=4, n_super=n_super, generator=torch.Generator(
+        device=idx.device).manual_seed(seed))
+    exact = idx._assign_device_exact(sample)
+    return float((idx._fast_assigner.assign_device(sample) == exact).mean())
+
+
 def routed_lloyd(cents: torch.Tensor, learn: torch.Tensor, n_super: int,
-                 rounds: int = 2) -> torch.Tensor:
+                 rounds: int = 2, seed: int = 90) -> torch.Tensor:
     """``rounds`` Lloyd rounds whose assignment is the routed two-level
-    assigner (w=4, generator seed 90 + round, the JAX recipe's keys) and
+    assigner (w=4, generator seed ``seed`` + round: the JAX recipes' keys,
+    90 here and 290 in the bench's grouping_scale) and
     whose cluster sums are deterministic segment sums; an empty cluster
     keeps its centroid."""
     nc = cents.shape[0]
     for it in range(rounds):
         assigner = TwoLevelAssigner(
             cents, n_super=n_super, w=4,
-            generator=torch.Generator(device=cents.device).manual_seed(90
-                                                                      + it))
+            generator=torch.Generator(device=cents.device).manual_seed(
+                seed + it))
         keys = assigner.assign_tensor(learn)
         del assigner
         ones = torch.ones((learn.shape[0], 1), device=learn.device)
@@ -216,14 +229,9 @@ def main(argv=None) -> dict:
 
     print("routed assigner setup + match gate ...", flush=True)
     n_super = min(2048, g["nc"] // 4)
-    stages("assigner_setup", lambda: idx.enable_fast_assign(
-        w=4, n_super=n_super,
-        generator=torch.Generator(device=device).manual_seed(95)))
     sample = corpus.gen(scale3.SAMPLE_SEED, MATCH_ROWS)
-    exact_keys = stages("match_gate",
-                        lambda: idx._assign_device_exact(sample))
-    match = float((idx._fast_assigner.assign_device(sample)
-                   == exact_keys).mean())
+    match = stages("match_gate",
+                   lambda: routed_match(idx, sample, n_super, 95))
     meta["match_rate"] = round(match, 4)
     print(f"routed exact-match rate = {match:.4f}", flush=True)
     if match < MATCH_GATE:

@@ -11,6 +11,8 @@ entry point returns None and the caller takes its numpy path
 
 Host code, not a kernel: the xvec decoder and the length-prefixed series
 parser and interleaver that the ``.index`` readers and writers call.
+:func:`compiled` builds other host sources the same way (the single-thread
+C++ search baseline of ``tools/bench.py``).
 """
 
 from __future__ import annotations
@@ -45,19 +47,35 @@ _SIGNATURES = {
 }
 
 
+def _target(source: str, stem: str, flags: list, suffix: str = "") -> str:
+    """BUILD_DIR/<stem>-<hash of the source and flags><suffix>."""
+    with open(source, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}{suffix}")
+
+
 def library_path() -> str:
     """The shared library of the current source."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libivfhnsw_native-{digest}.so")
+    return _target(SOURCE, "libivfhnsw_native", CXXFLAGS, ".so")
 
 
-def _build(path: str) -> None:
+def _build(source: str, flags: list, path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    subprocess.run(["g++", *CXXFLAGS, "-o", tmp, SOURCE], check=True,
+    subprocess.run(["g++", *flags, "-o", tmp, source], check=True,
                    capture_output=True)
     os.replace(tmp, path)
+
+
+def compiled(source: str, stem: str, flags: list) -> str:
+    """The executable of ``source`` built by g++ with ``flags`` into
+    BUILD_DIR under a name that carries a hash of the source and flags
+    (compiled at first use, through a temporary file and an atomic
+    rename). Raises CalledProcessError when g++ fails."""
+    path = _target(source, stem, flags)
+    if not os.path.exists(path):
+        _build(source, flags, path)
+    return path
 
 
 def _load():
@@ -69,7 +87,7 @@ def _load():
         try:
             path = library_path()
             if not os.path.exists(path):
-                _build(path)
+                _build(SOURCE, CXXFLAGS, path)
             lib = ctypes.CDLL(path)
         except (OSError, subprocess.CalledProcessError):
             return None
