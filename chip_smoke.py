@@ -182,6 +182,18 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    schedule, timed, bound beside them (records gain "deep" / "gscale").
    Phase 17 also prints the scale2 exact-ADC ceiling beside its recall.
    ``--only 20`` runs just this phase.
+21. the bench tool's ``scale3sl`` and then ``scale4`` stages ([bench21]
+   lines; tools/bench.py in process, through phase 20's stage routine,
+   records gain "s3sl" / "s4"): d=128, PQ16 + norm PQ, SIFT statistics,
+   the sweep 32/10k, 64/30k, 128/100k, k 10 and 100, 1024 queries, 128
+   then 256 codes a list, with one cut: nc=2^17 over 2^24 rows, extended
+   to 2^25, where the stages run nc=2^20 over 2^27 / 2^28 (an eighth of
+   the exact assignment's nb x nc; cutting nb alone would leave 8-16
+   codes a list, another regime for the kernels). scale4 extends
+   scale3sl's cached index, and its store must be scale3sl's plus the
+   extension; then examples_torch/run_sift1b.sh runs on the card with its
+   default device at a tiny synthetic size (rc 0, a Recall@ line).
+   ``--only 21`` runs just this phase.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -555,10 +567,10 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b,18,19,20`` builds the kernels and
+    """The smoke run; ``--only 17,17b,18,19,20,21`` builds the kernels and
     runs only the named large-nc phases (18: its scale2 part, 18a-18b,
-    after phase 17; 19: the 1B path; 20: the bench stages; a partial run:
-    no kernels line, no result)."""
+    after phase 17; 19: the 1B path; 20, 21: the bench stages; a partial
+    run: no kernels line, no result)."""
     import torch
     t_command = time.perf_counter()
     only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
@@ -619,6 +631,9 @@ def main(argv: list) -> int:
         if "20" in only:
             run_bench20(device, pl, [])
             clock.mark("20")
+        if "21" in only:
+            run_bench21(device, pl, [])
+            clock.mark("21")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -639,8 +654,8 @@ def main(argv: list) -> int:
 
 def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         s20: dict = COARSE20, onebillion: dict = ONE_B) -> list:
-    """Phases 3-20 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
-    ``s2`` / ``s20`` / ``onebillion``; phase 20 at the bench tool's) over
+    """Phases 3-21 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
+    ``s2`` / ``s20`` / ``onebillion``; phases 20-21 at the bench tool's) over
     the files ``files``; returns the kernel result records."""
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
@@ -873,6 +888,11 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         torch.cuda.empty_cache()
     run_bench20(device, pl, kernels)
     clock.mark("20")
+    # 21. the bench tool's scale3sl and scale4 stages, one launcher
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    run_bench21(device, pl, kernels)
+    clock.mark("21")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -3285,16 +3305,31 @@ def run_bench20(device, pl: PhaseLaunches, kernels: list) -> dict:
                 for name in ("deep", "grouping_scale")}
 
 
+# The bench stages of phases 20-21: record key, and (nb, nprobe, max_codes)
+# of the operating point checked beside the stage's own evaluation.
+BENCH_STAGES = {
+    "deep": ("deep", lambda S: (S["DEEP_NB"], S["DEEP_NPROBE"],
+                                S["DEEP_MC"])),
+    "grouping_scale": ("gscale", lambda S: (S["GS_NB"], S["GS_NPROBE"],
+                                            S["GS_MC"])),
+    "scale3sl": ("s3sl", lambda S: (S["S3SL_NB"], *S["S3SL_SWEEP"][-1])),
+    "scale4": ("s4", lambda S: (S["S4_NB"], S["S3_NPROBE"], S["S3_MC"]))}
+
+
 def bench20_stage(device, name: str, S: dict, cache: str,
-                  pl: PhaseLaunches, kernels: list) -> dict:
-    """One phase-20 stage: the tool's builder and evaluation (the stage's
-    main path, its scan kernel required to launch), then every slot width
-    with wide and two-phase top-k (deep) or pruning on and off (grouping),
-    sustained and single-launch µs/query through the tool's timed_qps, the
-    scan kernels required to launch in each; results equal across widths
-    and top-k; 64 queries equal to engine "torch"; each scan kernel
-    torch.equal to its plain version on this stage's schedule, timed,
-    under the record key "deep" or "gscale"."""
+                  pl: PhaseLaunches, kernels: list, phase: str = "20",
+                  on_index=None) -> dict:
+    """One bench stage of phase 20 (or 21): the tool's builder and
+    evaluation (the stage's main path, its scan kernel required to
+    launch), then every slot width with wide and two-phase top-k (IVFADC)
+    or pruning on and off (grouping) at the stage's operating point
+    (:data:`BENCH_STAGES`), sustained and single-launch µs/query through
+    the tool's timed_qps, the scan kernels required to launch in each;
+    results equal across widths and top-k; 64 queries equal to engine
+    "torch"; each scan kernel torch.equal to its plain version on this
+    stage's schedule, timed, under the stage's record key ("deep",
+    "gscale", "s3sl", "s4"). ``on_index(idx)``, when given, sees the index
+    before it is released."""
     import torch
     from ivfhnsw_tpu_torch.drivers.common import _sync
     from ivfhnsw_tpu_torch.tools import bench
@@ -3302,35 +3337,39 @@ def bench20_stage(device, name: str, S: dict, cache: str,
     from ivfhnsw_tpu_torch.utils.recall import recall_at_k
     build, evaluate = bench.STAGES[name]
     grouping = name == "grouping_scale"
-    pre, key = (("GS_", "gscale") if grouping else ("DEEP_", "deep"))
+    key, point = BENCH_STAGES[name]
+    nb, nprobe, mc = point(S)
+    tag = f"[bench{phase}]"
     mem_reset(device)
     t = time.perf_counter()
     idx, q_np, gt, meta = build(S, device, cache)
     _sync(device)
     build_s = time.perf_counter() - t
     scan = "grouping_scan_slots" if grouping else "adc_scan_slots"
-    f = pl.counted("20", None, [scan], lambda: evaluate(
+    f = pl.counted(phase, None, [scan], lambda: evaluate(
         idx, q_np, gt, meta, S, cache, False), f"{name} stage")
     fp = name + "_"
     st = idx._ensure_store()
     lists = (st.list_sizes().reshape(-1, S["NSUBC"]).sum(1) if grouping
              else st.list_sizes())
-    print(f"[bench20] {name}: nb {S[pre + 'NB']}, d {idx.d}, nc "
-          f"{S[pre + 'NC']}" + (f", nsubc {S['NSUBC']}, OPQ" if grouping
-                               else "") + f"; lists mean "
-          f"{lists.mean():.2f} max {lists.max()} empty "
-          f"{int((lists == 0).sum())}; build {build_s:.2f} s (stages "
+    ks = [k for k in (1, 10, 100) if fp + f"ceiling_at_{k}" in f]
+    print(f"{tag} {name}: nb {nb}, d {idx.d}, nc {idx.nc}"
+          + (f", nsubc {S['NSUBC']}, OPQ" if grouping else "")
+          + f"; lists mean {lists.mean():.2f} max {lists.max()} "
+          f"empty {int((lists == 0).sum())}; build {build_s:.2f} s (stages "
           + json.dumps({k: round(v, 2) for k, v in
                         meta["stage_seconds"].items()})
-          + f"; assignment {meta['assignment_mode']}); ceiling R@1/10/100 "
-          f"{[round(f[fp + f'ceiling_at_{k}'], 4) for k in (1, 10, 100)]} "
-          f"in {f[fp + 'ceiling_seconds']:.2f} s; search R@1/10/100 "
-          f"{[round(f[fp + f'recall_at_{k}'], 4) for k in (1, 10, 100)]}; "
+          + f"; assignment {meta['assignment_mode']}); ceiling R@"
+          f"{'/'.join(map(str, ks))} "
+          f"{[round(f[fp + f'ceiling_at_{k}'], 4) for k in ks]} in "
+          f"{f[fp + 'ceiling_seconds']:.2f} s; search R@"
+          f"{'/'.join(map(str, ks))} "
+          f"{[round(f[fp + f'recall_at_{k}'], 4) for k in ks]}; "
           f"default layout {idx._resolve_layout()}: sustained "
           f"{f[fp + 'us_per_query']:.3f} us/query (depth {bench.DEPTH}), "
           f"single launch {f[fp + 'us_per_query_single_launch']:.3f}; "
           f"device peak {peak_gib(device)} GiB", flush=True)
-    base = dict(k=S["K"], nprobe=S[pre + "NPROBE"], max_codes=S[pre + "MC"])
+    base = dict(k=S["K"], nprobe=nprobe, max_codes=mc)
     variants = ((True, False) if grouping else ("wide", "twophase"))
     res = {}
     for layout in ("chunk", "quad"):
@@ -3346,7 +3385,7 @@ def bench20_stage(device, name: str, S: dict, cache: str,
             need = [scan] + (["adc_scan_slots_min"] if v == "twophase"
                              else [])
             qps, labels, single = pl.counted(
-                "20", gran, need, lambda: bench.timed_qps(idx, q_np, prm),
+                phase, gran, need, lambda: bench.timed_qps(idx, q_np, prm),
                 f"{name} {layout} {v}")
             d, l = idx.search(q_np, prm)
             if not np.array_equal(l, labels):
@@ -3370,9 +3409,10 @@ def bench20_stage(device, name: str, S: dict, cache: str,
     d_t, l_t = idx.search(q_np[:64], prm)
     idx.engine = "auto"
     assert_same(d_t, l_t, d_f, l_f, f"{name} fused vs torch engine")
-    print(f"[bench20] {name}: per slot width and "
-          + ("pruning" if grouping else "top-k") + " (us/query sustained, "
-          "single launch, profiled slots, R@1/R@10) " + json.dumps(
+    print(f"{tag} {name} at nprobe {nprobe}, max_codes {mc}: per slot "
+          "width and " + ("pruning" if grouping else "top-k")
+          + " (us/query sustained, single launch, profiled slots, R@1/R@10) "
+          + json.dumps(
               {f"{c[0]}/{c[1]}": [round(r[2], 3), round(r[3], 3), r[4]]
                + [round(x, 4) for x in
                   recall_at_k(r[1], gt, ks=(1, 10)).values()]
@@ -3386,18 +3426,117 @@ def bench20_stage(device, name: str, S: dict, cache: str,
         prm.scan_budget = res[layout, variants[0]][4] * gran
         if not grouping:
             check_scan_kernels((*idx.scan_inputs(q, prm, gran), gran),
-                               kernels, key, "[bench20]",
-                               f"{name}'s schedule", {"nb": S[pre + "NB"]})
+                               kernels, key, tag, f"{name}'s schedule",
+                               {"nb": nb})
             continue
         check_grouping_kernel((*idx.grouping_scan_inputs(q, prm, gran),
-                               gran), kernels, key, "[bench20]",
-                              f"{name}'s schedule", {"nb": S[pre + "NB"]})
+                               gran), kernels, key, tag,
+                              f"{name}'s schedule", {"nb": nb})
     idx.scan_layout = "auto"
+    if on_index is not None:
+        on_index(idx)
     idx.release_device()
     del idx, q
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return f
+
+
+# Phase 21: the bench tool's scale3sl and scale4 stages with one cut,
+# nc=2^17 over 2^24 / 2^25 rows in place of nc=2^20 over 2^27 / 2^28: the
+# same 128 / 256 codes a list, at an eighth of the exact assignment's nb x
+# nc (bench.py:87-124 for the uncut sizes).
+BENCH21 = dict(S3SL_NC=1 << 17, S3SL_NB=1 << 24, S4_NB=1 << 25)
+# tests/test_drivers.py:142-151's tiny synthetic flags
+LAUNCHER_FLAGS = ["-synthetic", "0", "-d", "16", "-nc", "32", "-nb", "6000",
+                  "-nt", "3000", "-nq", "50", "-code_size", "4", "-nprobe",
+                  "8", "-max_codes", "500", "-k", "10", "-path_base", "",
+                  "-path_learn", "", "-path_q", "", "-path_gt", ""]
+
+
+def run_bench21(device, pl: PhaseLaunches, kernels: list,
+                cut: dict = BENCH21) -> dict:
+    """Phase 21: the ``scale3sl`` and then the ``scale4`` stage of
+    ivfhnsw_tpu_torch/tools/bench.py in process (:func:`bench20_stage`,
+    record keys "s3sl" / "s4") at the tool's sizes but for ``cut``; scale4
+    extends scale3sl's cached index, and its store must be scale3sl's plus
+    the extension (in every list scale3sl's ids and codes first, in their
+    order, then only ids past scale3sl's nb). Then one launcher on the
+    card: examples_torch/run_sift1b.sh with the tiny synthetic flags and
+    the default device. Returns each stage's record."""
+    import tempfile
+    from ivfhnsw_tpu_torch.tools import bench
+    S = {**bench.sizes(False), **cut}
+    print(f"[bench21] reduced: nc {S['S3SL_NC']} over {S['S3SL_NB']} / "
+          f"{S['S4_NB']} rows where the stages run nc "
+          f"{bench.FULL['S3SL_NC']} over {bench.FULL['S3SL_NB']} / "
+          f"{bench.FULL['S4_NB']} (the same codes a list)", flush=True)
+    stores, out = {}, {}
+
+    def keep(name):
+        def on_index(idx):
+            st = idx._ensure_store()
+            stores[name] = (st.ids.copy(), st.codes.copy(),
+                            st.list_offsets.astype(np.int64))
+        return on_index
+
+    with tempfile.TemporaryDirectory(prefix="bench21_") as cache:
+        for name in ("scale3sl", "scale4"):
+            out[name] = bench20_stage(device, name, S, cache, pl, kernels,
+                                      "21", keep(name))
+    check_extension(stores["scale3sl"], stores["scale4"], S["S3SL_NB"],
+                    S["S4_NB"])
+    run_launcher(device)
+    return out
+
+
+def check_extension(sl: tuple, s4: tuple, nb: int, nb4: int) -> None:
+    """scale4's store (ids, codes, offsets) is scale3sl's with the
+    extension's rows appended to each list."""
+    ids3, codes3, off3 = sl
+    ids4, codes4, off4 = s4
+    n3, n4 = np.diff(off3), np.diff(off4)
+    if len(ids4) != nb4 or len(ids3) != nb or (n4 < n3).any():
+        raise AssertionError(f"scale4: {len(ids4)} rows over lists that "
+                             "lost rows of scale3sl's")
+    pos = np.arange(nb4) - np.repeat(off4[:-1], n4)
+    old = pos < np.repeat(n3, n4)
+    if not (np.array_equal(ids4[old], ids3)
+            and np.array_equal(codes4[old], codes3)
+            and (ids4[~old] >= nb).all()
+            and np.array_equal(np.sort(ids4[~old]), np.arange(nb, nb4))):
+        raise AssertionError("scale4's store is not scale3sl's plus the "
+                             "extension")
+    print(f"[bench21] scale4's store is scale3sl's {nb} rows (ids and codes "
+          f"in every list, in order) plus the extension's {nb4 - nb}",
+          flush=True)
+
+
+def run_launcher(device) -> None:
+    """examples_torch/run_sift1b.sh on ``device`` (its default, -device
+    left out) with the tiny synthetic flags, artifacts in a temporary
+    directory: exit code 0 and a Recall@ line."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="launcher_") as tmp:
+        art = [f"-{k}" if i % 2 == 0 else os.path.join(tmp, k)
+               for k in ("path_centroids", "path_precomputed_idxs",
+                         "path_pq", "path_norm_pq", "path_index")
+               for i in range(2)]
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t = time.perf_counter()
+        r = subprocess.run(["bash", os.path.join(root, "examples_torch",
+                                                 "run_sift1b.sh"),
+                            *LAUNCHER_FLAGS, *art], capture_output=True,
+                           text=True, timeout=600, env=env)
+    if r.returncode != 0 or "Recall@" not in r.stdout:
+        raise AssertionError(f"run_sift1b.sh exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    print(f"[bench21] examples_torch/run_sift1b.sh (default device "
+          f"{device.type}) rc 0 in {time.perf_counter() - t:.2f} s: "
+          + " ".join(ln for ln in r.stdout.splitlines()
+                     if ln.startswith("Recall@")), flush=True)
 
 
 if __name__ == "__main__":

@@ -100,7 +100,11 @@ def streaming_topk_l2(queries: torch.Tensor, points: torch.Tensor, k: int,
     approx_min_k); the merge across blocks stays exact.
 
     The [B, block] score block is formed in place, in the order
-    (||q||^2 - 2 q.p) + ||p||^2, so a step holds one such block."""
+    (||q||^2 - 2 q.p) + ||p||^2, so a step holds one such block. At k=1
+    (assignment, the in-stream ground truth) a block is reduced by a
+    minimum, the first index among equal distances: one read of the block
+    where ``torch.topk`` cost half the exact assignment's time at nc=2^20
+    (``tools/assign_probe.py``)."""
     if exact_reduce not in ("topk", "binned"):
         raise ValueError(f"exact_reduce must be 'topk' or 'binned', "
                          f"got {exact_reduce!r}")
@@ -122,6 +126,8 @@ def streaming_topk_l2(queries: torch.Tensor, points: torch.Tensor, k: int,
             blk_d, blk_j = approx_topk_smallest(dists, kk, recall_target)
         elif exact_reduce == "binned":
             blk_d, blk_j = binned_topk_smallest(dists, kk, bin_size=32)
+        elif kk == 1:
+            blk_d, blk_j = dists.min(dim=1, keepdim=True)
         else:
             blk_d, blk_j = topk_smallest(dists, kk)
         best_d, best_i = merge_topk(best_d, best_i, blk_d, blk_j + s, k)

@@ -91,8 +91,14 @@ def routed_match(idx, sample: torch.Tensor, n_super: int, seed: int
     MATCH_GATE is held against."""
     idx.enable_fast_assign(w=4, n_super=n_super, generator=torch.Generator(
         device=idx.device).manual_seed(seed))
-    exact = idx._assign_device_exact(sample)
-    return float((idx._fast_assigner.assign_device(sample) == exact).mean())
+    return drift_rate(idx, sample)
+
+
+def drift_rate(idx, sample: torch.Tensor) -> float:
+    """The share of ``sample`` that the routed assigner on ``idx`` assigns
+    as the exact sweep does."""
+    return float((idx._fast_assigner.assign_device(sample)
+                  == idx._assign_device_exact(sample)).mean())
 
 
 def routed_lloyd(cents: torch.Tensor, learn: torch.Tensor, n_super: int,
@@ -313,10 +319,8 @@ def main(argv=None) -> dict:
                                                        host[1], host[2]))
         gt_done = build.processed // bs
         if use_routed and bi % DRIFT_EVERY == 0:
-            samp = blk[:DRIFT_ROWS]
-            rate = stages("drift", lambda: float((
-                idx._fast_assigner.assign_device(samp)
-                == idx._assign_device_exact(samp)).mean()))
+            rate = stages("drift", lambda: drift_rate(idx,
+                                                      blk[:DRIFT_ROWS]))
             meta["drift_series"].append({"batch": bi,
                                          "match_rate": round(rate, 4)})
             if rate < MATCH_GATE:
