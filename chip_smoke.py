@@ -194,6 +194,23 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    extension; then examples_torch/run_sift1b.sh runs on the card with its
    default device at a tiny synthetic size (rc 0, a Recall@ line).
    ``--only 21`` runs just this phase.
+22. the evidence tools ([evidence] lines; ivfhnsw_tpu_torch/tools/
+   assign_ab.py, coarse_ab.py, routed_tune.py, siftlike_scale_calibrate.py
+   in process): 22a assign_ab at its own size, 16,777,216 SIFT-like rows
+   over phase 20's grouping_scale centroids (nc=2^17): three twins (exact,
+   routed w=4, w=16) with their recall, match rates and list sizes, each
+   searched at both slot widths, wide and two-phase, equal across them and
+   on 64 queries to engine "torch", with K1-K4 torch.equal to their plain
+   versions on the routed twins' schedules (records "ab_w4" / "ab_w16");
+   22b coarse_ab on phase 21's scale3sl (its cut), then the bench record's
+   evidence fields from that cache; 22c routed_tune --quick on phase 17's
+   scale2 index (B=256) and the routed gate's top-100 result overlap at w
+   = 16, 32, 64 and n_super, each missing label classed (outranked at the
+   boundary, in a list the routed search did not admit, and whether the
+   partition placed that list's centroid outside its 8 nearest supers);
+   22d siftlike_scale_calibrate at a cut of its density (2^21 rows over
+   nc 2^14, 128 codes a list) at the tool's 128-byte codes and at 16
+   bytes. ``--only 22`` runs just this phase, building what it needs.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -567,10 +584,11 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b,18,19,20,21`` builds the kernels and
-    runs only the named large-nc phases (18: its scale2 part, 18a-18b,
-    after phase 17; 19: the 1B path; 20, 21: the bench stages; a partial
-    run: no kernels line, no result)."""
+    """The smoke run; ``--only 17,17b,18,19,20,21,22`` builds the kernels
+    and runs only the named large-nc phases (18: its scale2 part, 18a-18b,
+    after phase 17; 19: the 1B path; 20, 21: the bench stages; 22: the
+    evidence tools, building what they need; a partial run: no kernels
+    line, no result)."""
     import torch
     t_command = time.perf_counter()
     only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
@@ -634,6 +652,9 @@ def main(argv: list) -> int:
         if "21" in only:
             run_bench21(device, pl, [])
             clock.mark("21")
+        if "22" in only:
+            run_evidence(device, pl, [])
+            clock.mark("22")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -654,8 +675,8 @@ def main(argv: list) -> int:
 
 def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         s20: dict = COARSE20, onebillion: dict = ONE_B) -> list:
-    """Phases 3-21 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
-    ``s2`` / ``s20`` / ``onebillion``; phases 20-21 at the bench tool's) over
+    """Phases 3-22 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
+    ``s2`` / ``s20`` / ``onebillion``; phases 20-22 at the bench tool's) over
     the files ``files``; returns the kernel result records."""
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
@@ -871,7 +892,7 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
     # 18. the sharded paths: scale2 over 8 local shards and one NCCL rank,
     # then the flagship, the streamed build and the sharded checkpoint
     run_sharded_scale2(device, s2res, pl, kernels)
-    del s2res
+    s2res["index"].release_device()      # its host store waits for 22c
     if device.type == "cuda":
         torch.cuda.empty_cache()
     clock.mark("18a-b")
@@ -883,16 +904,27 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         torch.cuda.empty_cache()
     run_onebillion(device, onebillion, pl, kernels)
     clock.mark("19")
-    # 20. the bench tool's deep and grouping_scale stages
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    run_bench20(device, pl, kernels)
-    clock.mark("20")
-    # 21. the bench tool's scale3sl and scale4 stages, one launcher
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    run_bench21(device, pl, kernels)
-    clock.mark("21")
+    # 20-22. the bench tool's deep and grouping_scale stages; its scale3sl
+    # and scale4 stages, one launcher; the evidence tools on their caches
+    # and on phase 17's index
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="bench2x_") as tmp:
+        caches = {ph: os.path.join(tmp, ph) for ph in ("20", "21")}
+        for c in caches.values():
+            os.makedirs(c)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        run_bench20(device, pl, kernels, caches["20"])
+        clock.mark("20")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        run_bench21(device, pl, kernels, cache=caches["21"])
+        clock.mark("21")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        run_evidence(device, pl, kernels, caches, s2res)
+        del s2res
+        clock.mark("22")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -3293,15 +3325,18 @@ def report_onebillion(res: dict, coarse_ms: float, ctl: int) -> None:
           "max_codes budget of the JAX tool)", flush=True)
 
 
-def run_bench20(device, pl: PhaseLaunches, kernels: list) -> dict:
+def run_bench20(device, pl: PhaseLaunches, kernels: list,
+                cache: str | None = None) -> dict:
     """Phase 20: the ``deep`` and ``grouping_scale`` stages of
     ivfhnsw_tpu_torch/tools/bench.py in process at the tool's sizes
-    (nothing cut: 20M and 33.5M vectors); returns each stage's record."""
+    (nothing cut: 20M and 33.5M vectors), in the bench cache ``cache`` (a
+    temporary one when None); returns each stage's record."""
     import tempfile
     from ivfhnsw_tpu_torch.tools import bench
     S = bench.sizes(False)
-    with tempfile.TemporaryDirectory(prefix="bench20_") as cache:
-        return {name: bench20_stage(device, name, S, cache, pl, kernels)
+    with tempfile.TemporaryDirectory(prefix="bench20_") as tmp:
+        return {name: bench20_stage(device, name, S, cache or tmp, pl,
+                                    kernels)
                 for name in ("deep", "grouping_scale")}
 
 
@@ -3455,7 +3490,7 @@ LAUNCHER_FLAGS = ["-synthetic", "0", "-d", "16", "-nc", "32", "-nb", "6000",
 
 
 def run_bench21(device, pl: PhaseLaunches, kernels: list,
-                cut: dict = BENCH21) -> dict:
+                cut: dict = BENCH21, cache: str | None = None) -> dict:
     """Phase 21: the ``scale3sl`` and then the ``scale4`` stage of
     ivfhnsw_tpu_torch/tools/bench.py in process (:func:`bench20_stage`,
     record keys "s3sl" / "s4") at the tool's sizes but for ``cut``; scale4
@@ -3463,7 +3498,8 @@ def run_bench21(device, pl: PhaseLaunches, kernels: list,
     the extension (in every list scale3sl's ids and codes first, in their
     order, then only ids past scale3sl's nb). Then one launcher on the
     card: examples_torch/run_sift1b.sh with the tiny synthetic flags and
-    the default device. Returns each stage's record."""
+    the default device. ``cache``: the bench cache (a temporary one when
+    None). Returns each stage's record."""
     import tempfile
     from ivfhnsw_tpu_torch.tools import bench
     S = {**bench.sizes(False), **cut}
@@ -3480,10 +3516,10 @@ def run_bench21(device, pl: PhaseLaunches, kernels: list,
                             st.list_offsets.astype(np.int64))
         return on_index
 
-    with tempfile.TemporaryDirectory(prefix="bench21_") as cache:
+    with tempfile.TemporaryDirectory(prefix="bench21_") as tmp:
         for name in ("scale3sl", "scale4"):
-            out[name] = bench20_stage(device, name, S, cache, pl, kernels,
-                                      "21", keep(name))
+            out[name] = bench20_stage(device, name, S, cache or tmp, pl,
+                                      kernels, "21", keep(name))
     check_extension(stores["scale3sl"], stores["scale4"], S["S3SL_NB"],
                     S["S4_NB"])
     run_launcher(device)
@@ -3537,6 +3573,220 @@ def run_launcher(device) -> None:
           f"{device.type}) rc 0 in {time.perf_counter() - t:.2f} s: "
           + " ".join(ln for ln in r.stdout.splitlines()
                      if ln.startswith("Recall@")), flush=True)
+
+
+# Phase 22: the evidence tools. assign_ab at its own size (nc=2^17 from
+# phase 20's grouping_scale centroids, 16,777,216 rows), coarse_ab on phase
+# 21's cut scale3sl, routed_tune --quick and the routed gate's result
+# overlap on phase 17's scale2 index, siftlike_scale_calibrate at a cut of
+# the same 128 codes a list (nb 2^21 over nc 2^14 where the tool runs 2^23
+# over 2^16), at its 128-byte codes and at the bench stages' 16.
+EVIDENCE = dict(ab_nb=16_777_216, tune_b=256, result_ws=(16, 32, 64),
+                calib_nb=1 << 21, calib_nc=1 << 14,
+                calib_spec=(0.75, 1_048_576, 3.0))
+
+
+def evidence_twin(pl: PhaseLaunches, kernels: list, nb: int, res: dict):
+    """assign_ab's ``on_twin`` for phase 22a: the twin at both slot widths,
+    wide and two-phase, through the fused engine (each width under its own
+    profiled budget), the scan kernels required to launch in each, results
+    equal across widths and top-k and on 64 queries to engine "torch";
+    on a routed twin's schedule K1-K4 torch.equal to their plain versions
+    (records "ab_w4" / "ab_w16"). ``res`` gains the twin's µs/query by
+    combination."""
+    import dataclasses
+
+    import torch
+    from ivfhnsw_tpu_torch.tools import bench
+
+    def on_twin(v, ix, prm, q_np):
+        out, us = {}, {}
+        for layout in ("chunk", "quad"):
+            ix.scan_layout = layout
+            gran = ix.scan_gran()
+            p2, _ = bench.profiled(ix, q_np, dataclasses.replace(
+                prm, scan_budget=None))
+            for topk in ("wide", "twophase"):
+                ix.scan_topk = topk
+                need = ["adc_scan_slots"] + (["adc_scan_slots_min"]
+                                             if topk == "twophase" else [])
+                ix.search(q_np[:256], p2, batch=256)
+                t = time.perf_counter()
+                out[layout, topk] = pl.counted(
+                    "22", gran, need, lambda: ix.search(q_np, p2, batch=256),
+                    f"assign_ab {v} {layout} {topk}")
+                us[f"{layout}/{topk}"] = ((time.perf_counter() - t) * 1e6
+                                          / len(q_np))
+            if v != "exact":
+                q = torch.tensor(q_np, device=ix.device)
+                check_scan_kernels((*ix.scan_inputs(q, p2, gran), gran),
+                                   kernels, "ab_" + v.split("_")[1],
+                                   "[evidence]", f"assign_ab {v}'s schedule",
+                                   {"nb": nb})
+                del q
+        d0, l0 = out["quad", "wide"]
+        for c, (d, l) in out.items():
+            assert_same(d0, l0, d, l, f"assign_ab {v} {c} vs quad/wide")
+        ix.engine = "torch"
+        d_t, l_t = ix.search(q_np[:64], p2, batch=64)
+        ix.engine, ix.scan_layout, ix.scan_topk = "auto", "auto", "auto"
+        assert_same(d_t, l_t, d0[:64], l0[:64], f"assign_ab {v} fused vs "
+                    "torch engine")
+        res[v] = us
+    return on_twin
+
+
+def run_evidence(device, pl: PhaseLaunches, kernels: list,
+                 caches: dict | None = None, s2: dict | None = None,
+                 e: dict = EVIDENCE, S: dict | None = None,
+                 S21: dict | None = None) -> dict:
+    """Phase 22 ([evidence] lines): the port's evidence tools in process.
+    22a tools/assign_ab.py (:func:`evidence_twin` on each twin) on the
+    grouping_scale centroids of ``caches["20"]`` (phase 20's bench cache;
+    the centroids alone are trained when it is absent); 22b
+    tools/coarse_ab.py on the scale3sl index of ``caches["21"]`` (phase
+    21's cut; built when absent), then the bench's ``evidence_fields`` of
+    that cache with 22a's assign_ab.json beside it; 22c
+    tools/routed_tune.py --quick on ``s2``'s scale2 index (phase 17's;
+    built by the bench tool when None) at B = e["tune_b"], and the routed
+    gate's result overlap at e["result_ws"] and w = n_super; 22d
+    tools/siftlike_scale_calibrate.py's probe at the cut e["calib_nb"] /
+    e["calib_nc"], at the tool's 128-byte codes and at 16 bytes. ``S`` /
+    ``S21``: the bench sizes of phases 20 / 21 (default the tool's, and
+    those with phase 21's cut). Returns the records."""
+    import tempfile
+
+    import torch
+    from ivfhnsw_tpu_torch.models.ivfadc import resolve_layout
+    from ivfhnsw_tpu_torch.tools import (assign_ab, bench, coarse_ab,
+                                         routed_tune)
+    from ivfhnsw_tpu_torch.tools import siftlike_scale_calibrate as ssc
+    from ivfhnsw_tpu_torch.utils.siftlike import SiftLikeDeviceGen
+    S = S or bench.sizes(False)
+    S21 = S21 or {**S, **BENCH21}
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="evidence_") as tmp:
+        caches = {"20": os.path.join(tmp, "20"), "21": os.path.join(tmp, "21"),
+                  **(caches or {})}
+
+        # 22a. assign_ab
+        gs = os.path.join(caches["20"], "grouping_scale")
+        os.makedirs(gs, exist_ok=True)
+        p_cent = os.path.join(gs, "centroids.npy")
+        if not os.path.exists(p_cent):
+            sg = SiftLikeDeviceGen(device, n_classes=S["S3SL_NCLS"],
+                                   sigma=S["S3SL_SIGMA"], seed=13,
+                                   skew=S["S3SL_SKEW"])
+            bench.grouping_scale_centroids(
+                S, sg, torch.Generator(device=device).manual_seed(0), p_cent)
+            sg.release()
+        mem_reset(device)
+        t = time.perf_counter()
+        us = {}
+        ab = assign_ab.run(device, S, caches["20"], e["ab_nb"],
+                           on_twin=evidence_twin(pl, kernels, e["ab_nb"], us))
+        ab_s = time.perf_counter() - t
+        print(f"[evidence] assign_ab ({e['ab_nb']} SIFT-like rows at nc "
+              f"{ab['nc']}, grouping_scale's centroids; nprobe "
+              f"{ab['nprobe']}, max_codes {ab['max_codes']}, k 100) in "
+              f"{ab_s:.2f} s, device peak {peak_gib(device)} GiB: "
+              + json.dumps({v: {k: x for k, x in r.items()
+                                if k != "drift_series"}
+                            for v, r in ab["variants"].items()}), flush=True)
+        for v, r in ab["variants"].items():
+            print(f"[evidence] assign_ab {v}: R@1/10/100 "
+                  f"{r['recall_at_1']:.4f} / {r['recall_at_10']:.4f} / "
+                  f"{r['recall_at_100']:.4f}; match rate "
+                  f"{r.get('mean_match_rate', 1.0):.4f} (min "
+                  f"{r.get('drift_min_match_rate', 1.0):.4f}); lists max "
+                  f"{r['list_size_max']} p99 {r['list_size_p99']} empty "
+                  f"{r['empty_lists']}; assign {r['assign_seconds']:.2f} s; "
+                  f"us/query at batch 256 " + json.dumps(
+                      {c: round(x, 3) for c, x in us[v].items()})
+                  + "; equal across widths and top-k, 64 queries equal to "
+                  "engine torch", flush=True)
+        rec["assign_ab"] = ab
+
+        # 22b. coarse_ab, then the scale3sl record's evidence fields
+        gran = 1024 if resolve_layout("auto", S21["S3SL_NB"],
+                                      S21["S3SL_NC"]) == "quad" else 256
+        t = time.perf_counter()
+        cab = pl.counted("22", gran, ["adc_scan_slots"],
+                         lambda: coarse_ab.run(device, S21, caches["21"]),
+                         "coarse_ab")
+        print(f"[evidence] coarse_ab on scale3sl (reduced: nc "
+              f"{S21['S3SL_NC']} over {S21['S3SL_NB']} rows where the stage "
+              f"runs nc {S['S3SL_NC']} over {S['S3SL_NB']}) in "
+              f"{time.perf_counter() - t:.2f} s: " + json.dumps(cab),
+              flush=True)
+        shutil.copy(os.path.join(caches["20"], "assign_ab.json"),
+                    caches["21"])
+        meta = bench._load(os.path.join(caches["21"], "scale3sl",
+                                        "build_meta.json"))
+        ev = bench.evidence_fields(caches["21"], bench._drift_min(meta))
+        want = {"scale3sl_coarse_ab", "scale3sl_assign_ab"} | (
+            {"scale3sl_drift_source"} if bench._drift_min(meta) is None
+            else set())
+        if not want <= set(ev):
+            raise AssertionError(f"scale3sl evidence fields {sorted(ev)}, "
+                                 f"want {sorted(want)}")
+        print(f"[evidence] scale3sl record fields from the cache: "
+              f"{sorted(ev)}; drift {ev.get('scale3sl_drift_min_match_rate')}"
+              f" ({ev.get('scale3sl_drift_source', 'the build')})",
+              flush=True)
+        rec["coarse_ab"] = cab
+
+        # 22c. routed_tune --quick on scale2, then the result overlap
+        t = time.perf_counter()
+        if s2 is None:
+            idx, q_np, _, _ = bench.build_scale2(S, device,
+                                                 os.path.join(tmp, "s2"))
+            idx.enable_routed_coarse(generator=torch.Generator(
+                device=device).manual_seed(routed_tune.SEED))
+        else:
+            idx, q_np = s2["index"], s2["queries"]
+        P, B = S["S2_NPROBE"], e["tune_b"]
+        q = torch.tensor(q_np[:B], device=device)
+        tune = routed_tune.sweep(
+            idx, q, P, routed_tune.CONFIGS[:routed_tune.QUICK],
+            out=lambda m: print("[evidence] routed_tune " + m, flush=True))
+        del q
+        idx.scan_layout, idx.scan_topk = "quad", "wide"
+        ro = pl.counted("22", 1024, ["adc_scan_slots"],
+                        lambda: routed_tune.result_overlaps(
+                            idx, q_np, P, S["S2_MC"], e["result_ws"],
+                            out=lambda m: print("[evidence] scale2 " + m,
+                                                flush=True)),
+                        "routed result overlap")
+        idx.scan_layout, idx.scan_topk = "auto", "auto"
+        idx.release_device()
+        del idx
+        print(f"[evidence] routed_tune --quick (scale2, nc {S['S2_NC']}, "
+              f"{S['S2_NB']} rows, B {B}, nprobe {P}) and the result "
+              f"overlap in {time.perf_counter() - t:.2f} s", flush=True)
+        rec["routed_tune"], rec["result_overlap"] = tune, ro
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 22d. siftlike_scale_calibrate at a cut, 128-byte and 16-byte codes
+    sigma, ncls, skew = e["calib_spec"]
+    t = time.perf_counter()
+    ceil = {cs: ssc.probe(sigma, ncls, skew, device, nb=e["calib_nb"],
+                          nc=e["calib_nc"], code_size=cs,
+                          log=lambda m: print("[evidence] calibrate" + m,
+                                              flush=True))
+            for cs in (ssc.CODE_SIZE, 16)}
+    print(f"[evidence] siftlike_scale_calibrate sigma={sigma} n_classes="
+          f"{ncls} skew={skew} (reduced: nb {e['calib_nb']} over nc "
+          f"{e['calib_nc']} where the tool runs {ssc.NB} over {ssc.NC}, the "
+          f"same {e['calib_nb'] // e['calib_nc']} codes a list) in "
+          f"{time.perf_counter() - t:.2f} s: ceiling@1/@10 at code_size "
+          f"{ssc.CODE_SIZE} (pq_m {ssc.CODE_SIZE}, the tool's) "
+          f"{ceil[ssc.CODE_SIZE][1]:.4f} / {ceil[ssc.CODE_SIZE][10]:.4f}, at "
+          f"code_size 16 (the bench stages') {ceil[16][1]:.4f} / "
+          f"{ceil[16][10]:.4f}", flush=True)
+    rec["calibrate"] = ceil
+    return rec
 
 
 if __name__ == "__main__":

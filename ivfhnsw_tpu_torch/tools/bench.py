@@ -374,6 +374,27 @@ def coarse_overlap_control(idx, queries, nprobe: int, n_ctl: int = 64):
     return _overlap(approx, exact)
 
 
+RESULT_K = 100         # the routed gate's result search: k, queries a batch
+RESULT_BATCH = 256
+
+
+def result_search(idx, queries, nprobe: int, max_codes: int, mode: str):
+    """(dists, labels) [n, RESULT_K] on the host of the routed gate's
+    result search: k = RESULT_K at ``nprobe`` / ``max_codes`` under
+    ``coarse_mode`` ``mode``, RESULT_BATCH queries a batch."""
+    return idx.search(queries, SearchParams(
+        k=RESULT_K, nprobe=nprobe, max_codes=max_codes, coarse_mode=mode),
+        batch=RESULT_BATCH)
+
+
+def result_overlap(l_ex: np.ndarray, l_rt: np.ndarray) -> float:
+    """Mean share of each row's top-RESULT_K labels of ``l_ex`` (the
+    exact-coarse search) found in the same row of ``l_rt`` (labels -1
+    left out)."""
+    return float(np.mean([np.intersect1d(a[a >= 0], b[b >= 0]).size
+                          / RESULT_K for a, b in zip(l_ex, l_rt)]))
+
+
 def routed_setup(idx, queries, nprobe: int, sdir: str, max_codes: int,
                  n_ctl: int = 256, target: float = 0.97,
                  rs_target: float = 0.99):
@@ -412,16 +433,13 @@ def routed_setup(idx, queries, nprobe: int, sdir: str, max_codes: int,
     rs = None
     if overlap < 0.95:
         n_rs = min(len(queries), 1024)
-        _, l_ex = idx.search(queries[:n_rs], SearchParams(
-            k=100, nprobe=nprobe, max_codes=max_codes, coarse_mode="exact"),
-            batch=256)
+        _, l_ex = result_search(idx, queries[:n_rs], nprobe, max_codes,
+                                "exact")
         for w in (16, 32, 64):
             idx.routed_w = w
-            _, l_rt = idx.search(queries[:n_rs], SearchParams(
-                k=100, nprobe=nprobe, max_codes=max_codes,
-                coarse_mode="routed"), batch=256)
-            rs = float(np.mean([np.intersect1d(a[a >= 0], b[b >= 0]).size
-                                / 100.0 for a, b in zip(l_ex, l_rt)]))
+            _, l_rt = result_search(idx, queries[:n_rs], nprobe, max_codes,
+                                    "routed")
+            rs = result_overlap(l_ex, l_rt)
             log(f"  routed coarse w={w}: top-100 result overlap {rs:.4f}")
             if rs >= rs_target:
                 break
@@ -950,6 +968,27 @@ def build_siftlike(S: dict, device, cache: str):
     return idx, queries, np.load(p["gt"]), {}
 
 
+def grouping_scale_centroids(S: dict, sg, gen: torch.Generator, path: str,
+                             clock=None) -> np.ndarray:
+    """grouping_scale's GS_NC centroids: loaded from ``path``, or trained
+    by hierarchical seeding (``gen``) and 2 routed Lloyd rounds (seed 290)
+    over min(8,388,608, GS_NB) rows of ``sg`` (seed 777,001) and saved
+    there. ``clock`` (a ``Stages``) times the two steps."""
+    if os.path.exists(path):
+        return np.load(path)
+    clock = clock or Stages(gen.device)
+    nc = S["GS_NC"]
+    learn = sg.batch_device(777_001, min(8_388_608, S["GS_NB"]))
+    log(f"grouping_scale: hierarchical seeding k={nc} over "
+        f"{learn.shape[0]} rows, 2 routed Lloyd rounds ...")
+    seeds = clock("seeding", lambda: hierarchical_seed(gen, learn, nc))
+    cents = clock("lloyd", lambda: routed_lloyd(
+        seeds, learn, min(2048, nc // 4), seed=290)).cpu().numpy()
+    del learn, seeds
+    np.save(path, cents)
+    return cents
+
+
 def build_grouping_scale(S: dict, device, cache: str):
     """Grouping+Pruning+OPQ at nc=2^17, nsubc 64, on the device SIFT-like
     corpus (``bench.py:1585``): hierarchical seeding and 2 routed Lloyd
@@ -986,18 +1025,8 @@ def build_grouping_scale(S: dict, device, cache: str):
     meta = {"sigma": S["S3SL_SIGMA"], "n_classes": S["S3SL_NCLS"],
             "nsubc": S["NSUBC"]}
     gen = torch.Generator(device=device).manual_seed(0)
-    if os.path.exists(p["centroids"]):
-        gidx.set_centroids(np.load(p["centroids"]))
-    else:
-        learn = sg.batch_device(777_001, min(8_388_608, nb))
-        log(f"grouping_scale: hierarchical seeding k={nc} over "
-            f"{learn.shape[0]} rows, 2 routed Lloyd rounds ...")
-        seeds = clock("seeding", lambda: hierarchical_seed(gen, learn, nc))
-        cents = clock("lloyd", lambda: routed_lloyd(seeds, learn, n_sup,
-                                                    seed=290))
-        del learn, seeds
-        gidx.set_centroids(cents)
-        np.save(p["centroids"], cents.cpu().numpy())
+    gidx.set_centroids(grouping_scale_centroids(S, sg, gen, p["centroids"],
+                                                clock))
     if os.path.exists(p_nn):
         z = np.load(p_nn)
         gidx.nn_centroid_idxs = torch.tensor(z["nn_i"], device=device)
@@ -1338,12 +1367,46 @@ def coverage_curve(idx, q, gt, max_codes: int,
     return out
 
 
+DRIFT_SOURCE = ("assign_ab router-health probe (build itself is "
+                "exact-assigned; routed monitor measured on the same corpus "
+                "stream)")
+
+
+def evidence_fields(cache: str, drift_min) -> dict:
+    """The scale3sl record's fields from the evidence tools' artifacts in
+    ``cache`` (``bench.py:2862-2949``): ``scale3sl_coarse_ab``, what
+    ``tools/coarse_ab.py`` wrote, and ``scale3sl_assign_ab`` (nb, nc,
+    source "cache", the variants without their drift series), what
+    ``tools/assign_ab.py`` wrote; when the build's own drift ``drift_min``
+    is None (the gate fired, so the build assigned exactly) the A/B's
+    routed_w4 drift minimum as ``scale3sl_drift_min_match_rate`` with
+    ``scale3sl_drift_source``. A field whose artifact is absent is left
+    out: there is no fall-back to a committed record."""
+    out = {}
+    p_cab = os.path.join(cache, "coarse_ab.json")
+    if os.path.exists(p_cab):
+        out["scale3sl_coarse_ab"] = _load(p_cab)
+    p_ab = os.path.join(cache, "assign_ab.json")
+    if not os.path.exists(p_ab):
+        return out
+    ab = _load(p_ab)
+    variants = ab.get("variants", {})
+    out["scale3sl_assign_ab"] = {
+        "nb": ab.get("nb"), "nc": ab.get("nc"), "source": "cache",
+        "variants": {v: {k: x for k, x in e.items() if k != "drift_series"}
+                     for v, e in variants.items()}}
+    ab_min = variants.get("routed_w4", {}).get("drift_min_match_rate")
+    if drift_min is None and ab_min is not None:
+        out["scale3sl_drift_min_match_rate"] = ab_min
+        out["scale3sl_drift_source"] = DRIFT_SOURCE
+    return out
+
+
 def eval_scale3sl(idx, q, gt, meta, S: dict, cache: str, smoke: bool):
-    """``bench.py:2751-2956``. Left out: ``scale3sl_coarse_ab`` and
-    ``scale3sl_assign_ab``, which report the JAX rigs tools/coarse_ab.py and
-    tools/assign_ab.py (no port counterpart) or the committed TPU record
-    RESULTS_ASSIGN_AB.json, and with them ``scale3sl_drift_source``: a
-    build whose gate fired records no drift (None)."""
+    """``bench.py:2751-2956``, with :func:`evidence_fields` from this
+    cache's ``coarse_ab.json`` / ``assign_ab.json`` (the port tools
+    ``tools/coarse_ab.py`` and ``tools/assign_ab.py``); never the committed
+    TPU record RESULTS_ASSIGN_AB.json that the JAX bench falls back to."""
     sd = os.path.join(cache, "scale3sl")
     curve = []
     for npb, mc in S["S3SL_SWEEP"]:
@@ -1392,7 +1455,8 @@ def eval_scale3sl(idx, q, gt, meta, S: dict, cache: str, smoke: bool):
             pre + "write_seconds": meta.get("write_seconds"),
             pre + "assignment_mode": meta["assignment_mode"],
             pre + "routed_match_rate": meta.get("routed_match_rate"),
-            pre + "drift_min_match_rate": _drift_min(meta)}
+            pre + "drift_min_match_rate": _drift_min(meta),
+            **evidence_fields(cache, _drift_min(meta))}
 
 
 def device_memory_gb(device) -> tuple:

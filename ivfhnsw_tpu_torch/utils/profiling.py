@@ -10,7 +10,9 @@ Here:
 - :func:`device_trace`: a ``torch.profiler`` context writing a Chrome trace
   (viewable in Perfetto or chrome://tracing) into a directory;
 - :class:`Counters`: the dist_calc analog, explicit counts (codes scanned,
-  lists probed) accumulated by the caller.
+  lists probed) accumulated by the caller;
+- :func:`marginal_ms`: steady-state milliseconds per launch of a function
+  (the JAX rigs' ``tools/perf_probe.py::marginal_ms``).
 """
 
 from __future__ import annotations
@@ -76,3 +78,23 @@ class Counters:
 
     def report(self) -> dict:
         return dict(self.values)
+
+
+def marginal_ms(fn, *args, repeat: int = 5) -> float:
+    """Steady-state milliseconds per call of ``fn(*args)``: (t_R - t_1) /
+    (R - 1), t_r the best of two bundles of r calls enqueued back to back
+    and synchronised once (R = ``repeat``), after one warm-up bundle; the
+    launch and synchronisation costs cancel. Host clock; on a CUDA device
+    the synchronisation is ``torch.cuda.synchronize``."""
+    def bundle(r: int) -> float:
+        t = time.perf_counter()
+        for _ in range(r):
+            fn(*args)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    bundle(1)
+    t1 = min(bundle(1) for _ in range(2))
+    t_r = min(bundle(repeat) for _ in range(2))
+    return (t_r - t1) / (repeat - 1) * 1e3
