@@ -211,6 +211,24 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    22d siftlike_scale_calibrate at a cut of its density (2^21 rows over
    nc 2^14, 128 codes a list) at the tool's 128-byte codes and at 16
    bytes. ``--only 22`` runs just this phase, building what it needs.
+23. the bench tool's run control and its helpers ([bench23] lines;
+   ivfhnsw_tpu_torch/tools/warm_cache.py, scale4_eval.py, bench.py,
+   render_results.py) on phase 21's cut cache: 23a warm_cache scale3sl,
+   scale4 with their ceiling files removed finds both builds and writes
+   only the two ceilings, equal to the stages'; 23b scale4_eval as the
+   phase's main path (K1 or K2 required to launch), its eval.json equal to
+   the scale4 stage's fields run just after but for the measured times, K1
+   and K3 torch.equal to plain on scale4's schedule (records "s4eval");
+   23c a bench subprocess at the BENCH_SMOKE sizes sent SIGTERM while its
+   second stage (deep) builds: rc 143, its last stdout line =
+   last_result.json with terminated_by_signal; 23d bench at the
+   BENCH_SMOKE sizes in a temporary cache with scale2 warm under a budget
+   of scale2's warm seconds and 20 (only the warm stages run) and under
+   budget 0 (every stage skipped), each
+   skipped stage with its marker and no field; 23e render_results on those
+   records into a copy of README.md, every measured row with this card's
+   nvidia-smi line. ``--only 23`` runs just this phase, building the cut
+   cache first.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -584,11 +602,11 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b,18,19,20,21,22`` builds the kernels
-    and runs only the named large-nc phases (18: its scale2 part, 18a-18b,
-    after phase 17; 19: the 1B path; 20, 21: the bench stages; 22: the
-    evidence tools, building what they need; a partial run: no kernels
-    line, no result)."""
+    """The smoke run; ``--only 17,17b,18,19,20,21,22,23`` builds the
+    kernels and runs only the named large-nc phases (18: its scale2 part,
+    18a-18b, after phase 17; 19: the 1B path; 20, 21: the bench stages;
+    22: the evidence tools, 23: the bench's run control and helpers, each
+    building what it needs; a partial run: no kernels line, no result)."""
     import torch
     t_command = time.perf_counter()
     only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
@@ -655,6 +673,9 @@ def main(argv: list) -> int:
         if "22" in only:
             run_evidence(device, pl, [])
             clock.mark("22")
+        if "23" in only:
+            run_bench23(device, pl, [])
+            clock.mark("23")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -675,8 +696,8 @@ def main(argv: list) -> int:
 
 def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         s20: dict = COARSE20, onebillion: dict = ONE_B) -> list:
-    """Phases 3-22 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
-    ``s2`` / ``s20`` / ``onebillion``; phases 20-22 at the bench tool's) over
+    """Phases 3-23 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
+    ``s2`` / ``s20`` / ``onebillion``; phases 20-23 at the bench tool's) over
     the files ``files``; returns the kernel result records."""
     import torch
     from ivfhnsw_tpu_torch.drivers import common as C
@@ -925,6 +946,10 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         run_evidence(device, pl, kernels, caches, s2res)
         del s2res
         clock.mark("22")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        run_bench23(device, pl, kernels, cache=caches["21"])
+        clock.mark("23")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -3787,6 +3812,245 @@ def run_evidence(device, pl: PhaseLaunches, kernels: list,
           f"{ceil[16][10]:.4f}", flush=True)
     rec["calibrate"] = ceil
     return rec
+
+
+# Phase 23: the bench tool's run control and its three helpers, on phase
+# 21's cut cache (scale3sl / scale4 at nc=2^17 over 2^24 / 2^25 rows).
+def _tree(root: str) -> dict:
+    """{path relative to root: (size, mtime_ns)} of every file under it."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.relpath(os.path.join(d, f), root)] = (st.st_size,
+                                                              st.st_mtime_ns)
+    return out
+
+
+def _bench_env(cache: str) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BENCH_SMOKE", "BENCH_BUDGET_S", "BENCH_STAGES")}
+    return dict(env, BENCH_CACHE_DIR=cache)
+
+
+def bench_main_quiet(cache: str, argv: list) -> dict:
+    """tools/bench.py's main in process with BENCH_CACHE_DIR=``cache``, its
+    JSON lines kept off this command's stdout."""
+    import contextlib
+    import io
+    from ivfhnsw_tpu_torch.tools import bench
+    saved = dict(os.environ)
+    os.environ.clear()
+    os.environ.update(_bench_env(cache))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            return bench.main(argv)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def run_bench23(device, pl: PhaseLaunches, kernels: list,
+                cut: dict = BENCH21, cache: str | None = None) -> dict:
+    """Phase 23 ([bench23] lines): 23a tools/warm_cache.py's warm() of
+    scale3sl and scale4 on the cut cache ``cache`` (phase 21's; built here
+    first when None) with their ceiling files removed: both builds found,
+    only the two ceilings written, equal to the ones removed; 23b
+    tools/scale4_eval.py's run() on it as the phase's main path (K1 or K2
+    required to launch), its eval.json against the bench stage's fields
+    run just after (equal but for the measured times), K1 and K3
+    torch.equal to plain on scale4's schedule (records "s4eval"); 23c a
+    bench subprocess at the BENCH_SMOKE sizes sent SIGTERM once its second
+    stage builds (rc 143, its one more stdout line = last_result.json,
+    terminated_by_signal in deep); 23d bench runs at the BENCH_SMOKE sizes
+    in a temporary cache: scale2 warmed, then a budget of its warm seconds
+    and 20 (below every cold stage's estimate: only the warm stages run),
+    then budget 0 (every stage skipped), each skipped stage with its
+    marker and no field; 23e tools/render_results.py on 23c and 23d's
+    records into a copy of README.md, every measured row carrying this
+    card's line."""
+    import tempfile
+
+    import torch
+    from ivfhnsw_tpu_torch.models.ivfadc import resolve_layout
+    from ivfhnsw_tpu_torch.tools import (bench, render_results, scale4_eval,
+                                         warm_cache)
+    from ivfhnsw_tpu_torch.utils.config import SearchParams
+    S = {**bench.sizes(False), **cut}
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="bench23_") as tmp:
+        cache = cache or os.path.join(tmp, "21")
+        names = ("scale3sl", "scale4")
+        if not bench._all_present(cache, bench.NEED["scale4"].probe[:1]):
+            t = time.perf_counter()
+            for n in names:
+                warm_cache.warm(n, S, device, cache)
+            print(f"[bench23] built the cut scale3sl / scale4 cache in "
+                  f"{time.perf_counter() - t:.2f} s", flush=True)
+
+        # 23a. warm_cache on the built cache: only the ceilings written
+        ceil = {n: os.path.join(cache, n, "ceiling.json") for n in names}
+        before = {n: bench._load(p) for n, p in ceil.items()}
+        for p in ceil.values():
+            os.remove(p)
+        tree = _tree(cache)
+        t = time.perf_counter()
+        warmed = [warm_cache.warm(n, S, device, cache) for n in names]
+        changed = sorted(p for p, v in _tree(cache).items()
+                         if tree.get(p) != v)
+        if ([(w["build"], w["ceiling"]) for w in warmed]
+                != [("cached", "computed")] * 2
+                or changed != sorted(os.path.relpath(p, cache)
+                                     for p in ceil.values())):
+            raise AssertionError(f"warm_cache: {warmed}, changed {changed}")
+        after = {n: bench._load(p) for n, p in ceil.items()}
+        if after != before:
+            raise AssertionError(f"warm_cache's ceilings {after} differ "
+                                 f"from the stages' {before}")
+        print(f"[bench23] warm_cache scale3sl,scale4 in "
+              f"{time.perf_counter() - t:.2f} s: both builds found, only "
+              f"{changed} written, equal to the stages' ceilings "
+              + json.dumps(after), flush=True)
+
+        # 23b. scale4_eval, the phase's main path, then the stage itself
+        gran = (1024 if resolve_layout("auto", S["S4_NB"], S["S3SL_NC"])
+                == "quad" else 256)
+        mem_reset(device)
+        t = time.perf_counter()
+        ev = pl.counted("23", gran, ["adc_scan_slots"],
+                        lambda: scale4_eval.run(S, device, cache),
+                        "scale4_eval")
+        ev_s = time.perf_counter() - t
+        if bench._load(os.path.join(cache, "scale4", "eval.json")) != ev:
+            raise AssertionError("scale4_eval: eval.json is not its record")
+        rec = bench.run_stage("scale4", S, device, cache)
+        same = sorted(set(rec) - set(scale4_eval.TIMED))
+        diff = [k for k in same if ev.get(k) != rec[k]]
+        extra = set(ev) - set(rec) - {"load_seconds", "timed_seconds",
+                                      "device", "recorded_at"}
+        if diff or extra:
+            raise AssertionError(f"scale4_eval against the stage: differ "
+                                 f"{diff}, extra {sorted(extra)}")
+        print(f"[bench23] scale4_eval (reduced: nc {S['S3SL_NC']} over "
+              f"{S['S4_NB']} rows) in {ev_s:.2f} s (load "
+              f"{ev['load_seconds']:.2f}): R@1/10 "
+              f"{ev['scale4_recall_at_1']:.4f} / "
+              f"{ev['scale4_recall_at_10']:.4f} (ceiling "
+              f"{ev['scale4_ceiling_at_1']:.4f} / "
+              f"{ev['scale4_ceiling_at_10']:.4f}), "
+              f"{ev['scale4_us_per_query']:.3f} us/query sustained, device "
+              f"{ev['scale4_hbm_in_use_gb']} of {ev['scale4_hbm_limit_gb']} "
+              f"GiB; the stage's "
+              f"{len(same)} untimed fields equal, its "
+              f"{rec['scale4_us_per_query']:.3f} us/query", flush=True)
+        idx, q_np, _, _ = bench.build_scale4(S, device, cache)
+        prm, _ = bench.profiled(idx, q_np, SearchParams(
+            k=S["K"], nprobe=S["S3_NPROBE"], max_codes=S["S3_MC"]))
+        q = torch.tensor(q_np, device=device)
+        check_scan_kernels((*idx.scan_inputs(q, prm, idx.scan_gran()),
+                            idx.scan_gran()), kernels, "s4eval",
+                           "[bench23]", "scale4_eval's schedule",
+                           {"nb": S["S4_NB"]})
+        idx.release_device()
+        del idx, q
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["scale4_eval"] = ev
+
+        # 23c. SIGTERM after the first stage line
+        c_cache = os.path.join(tmp, "c")
+        t = time.perf_counter()
+        p_err = os.path.join(tmp, "c.err")
+        with open(p_err, "w") as err:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "ivfhnsw_tpu_torch.tools.bench",
+                 "--device", str(device), "--smoke", "--stages",
+                 "primary,deep,grouping_scale"], stdout=subprocess.PIPE,
+                stderr=err, text=True, cwd=root, env=_bench_env(c_cache))
+            try:
+                first = json.loads(p.stdout.readline())
+                for _ in range(1200):       # until deep's build streams
+                    with open(p_err) as f:
+                        if "streaming" in f.read():
+                            break
+                    time.sleep(0.05)
+                p.send_signal(15)
+                rest = p.stdout.read()
+                rc = p.wait(timeout=600)
+            finally:
+                p.kill()
+        lines = rest.strip().splitlines()
+        last = json.loads(lines[-1]) if lines else {}
+        p_last = os.path.join(c_cache, "bench_smoke", "last_result.json")
+        if (rc != 143 or first["stages_done"] != ["primary"]
+                or last.get("terminated_by_signal") != 15
+                or last.get("terminated_in_stage") != "deep"
+                or last["stages_done"] != ["primary"]
+                or bench._load(p_last) != last):
+            raise AssertionError(f"bench under SIGTERM: rc {rc}, last line "
+                                 f"{json.dumps(last)[:500]}")
+        print(f"[bench23] bench --smoke --stages primary,deep,grouping_scale"
+              f" sent SIGTERM while deep builds: rc {rc}, last "
+              f"line parses, terminated_by_signal 15 in stage "
+              f"{last['terminated_in_stage']}, equal to last_result.json "
+              f"({time.perf_counter() - t:.2f} s)", flush=True)
+
+        # 23d. a budget that admits only the warm stages, then budget 0
+        d_cache = os.path.join(tmp, "d")
+        dev = ["--device", str(device), "--smoke"]
+        bench_main_quiet(d_cache, dev + ["--stages", "scale2"])
+        budget = bench.NEED["scale2"].warm + 20.0   # < every cold stage
+        warm = bench_main_quiet(d_cache, dev + ["--budget-s", str(budget)])
+        zero = bench_main_quiet(d_cache, dev + ["--budget-s", "0"])
+        for r, ran in ((warm, ["search_1b", "scale2", "build_1b"]),
+                       (zero, [])):
+            skipped = [m["stage"] for m in r["skipped_stages"]]
+            fields = {k for s in r["stages_done"]
+                      for k in r["stage_keys"][s]}
+            done = r["stages_done"]
+            if (done[:2] != ran[:2] or not set(done) <= set(ran)
+                    or sorted(skipped + done) != sorted(bench.STAGES)
+                    or any(m["reason"] != "wall-clock budget"
+                           for m in r["skipped_stages"])
+                    or set(r) - set(zero) != fields):
+                raise AssertionError(f"budget {r['budget_seconds']}: ran "
+                                     f"{r['stages_done']}, skipped "
+                                     f"{skipped}")
+        print(f"[bench23] budget {budget:.1f} s on a cache with scale2 "
+              f"warm: ran {warm['stages_done']}, skipped "
+              f"{len(warm['skipped_stages'])} stages with their markers "
+              f"(primary's warm reserve "
+              f"{warm['skipped_stages'][0].get('warm_reserve_seconds')} s);"
+              f" budget 0: all {len(zero['skipped_stages'])} skipped; no "
+              f"field of a skipped stage; launch round trip "
+              f"{warm['launch_roundtrip_ms']} ms", flush=True)
+
+        # 23e. render_results on those records into a copy of README.md
+        readme = os.path.join(tmp, "README.md")
+        shutil.copy(os.path.join(root, "README.md"), readme)
+        recs = [p_last, os.path.join(tmp, "d_warm.json")]
+        bench._dump(recs[1], warm)      # 23d's last_result.json is zero's
+        if render_results.main(["--snapshot", *recs, "--readme", readme,
+                                "--results",
+                                os.path.join(tmp, "snap.json")]) != 0:
+            raise AssertionError("render_results failed")
+        with open(readme) as f:
+            table = f.read().split(render_results.START)[1].split(
+                render_results.END)[0]
+        rows = {ln.split(" | ")[0][2:]: ln for ln in table.splitlines()
+                if ln.startswith("| ") and not ln.startswith("| stage")}
+        card = bench.device_line(device)
+        measured = {"primary", *warm["stages_done"]}
+        bad = [s for s, ln in rows.items()
+               if (card in ln) != (s in measured)
+               or ("| not measured |" in ln) == (s in measured)]
+        if set(rows) != set(bench.STAGES) or bad:
+            raise AssertionError(f"render_results rows {bad}")
+        print(f"[bench23] render_results: {len(measured)} rows carry "
+              f"'{card}', {len(rows) - len(measured)} read not measured",
+              flush=True)
+    return out
 
 
 if __name__ == "__main__":

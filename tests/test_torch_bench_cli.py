@@ -3,9 +3,9 @@ ivfhnsw_tpu_torch.tools.bench --device cpu --smoke``) at the JAX bench's
 BENCH_SMOKE sizes, in a temporary BENCH_CACHE_DIR: every JAX field name of
 the primary, deep and grouping_scale stages in the last line, no error
 field, one cumulative line per stage, a second run loading every stage
-from the cache, a stage that fails ending the command non-zero; the
-baseline's load gate; the device default; the tool's imports. Imports no
-jax.
+from the cache, a stage that fails recorded and ending the command with
+exit code 1; the baseline's load gate; the device default; the tool's
+imports. Imports no jax.
 """
 
 import json
@@ -131,20 +131,28 @@ def test_second_run_loads_the_cache(smoke_run, monkeypatch, capsys):
 
 
 def test_failing_stage_exits_non_zero(smoke_run, tmp_path):
-    """A primary index file that cannot be read fails the stage, and the
-    command exits non-zero with no complete record."""
+    """A primary index file that cannot be read fails the stage: the
+    command exits 1, and its one record line holds ``primary_error`` and
+    no measured stage."""
     cache, _ = smoke_run
     bad = tmp_path / "bad"
     (bad / "bench_smoke").mkdir(parents=True)
     src = cache / "bench_smoke" / "primary"
     (bad / "bench_smoke" / "primary").mkdir()
+    # the same corpus version, so that the run keeps the corrupt file
+    (bad / "bench_smoke" / "corpus_version").write_bytes(
+        (cache / "bench_smoke" / "corpus_version").read_bytes())
     for f in os.listdir(src):
         data = (src / f).read_bytes()
         (bad / "bench_smoke" / "primary" / f).write_bytes(
             data[:100] if f == "bench.index" else data)
     r = _tool(bad, "--stages", "primary")
-    assert r.returncode != 0
-    assert not r.stdout.strip()
+    assert r.returncode == 1
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["primary_error"] and rec["stages_done"] == []
+    assert "value" not in rec and "us_per_query" not in rec
 
 
 def test_baseline_gate_refuses_without_a_number(tmp_path, monkeypatch):
