@@ -4,8 +4,9 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compile the hand-written kernels (csrc/adc_scan.cu,
-   csrc/grouping_scan.cu, csrc/grouping_lab.cu and csrc/scan_lab.cu) with
-   nvcc from this checkout, one nvcc process per source, started together;
+   csrc/grouping_scan.cu, csrc/grouping_lab.cu, csrc/scan_lab.cu and
+   csrc/assign_min.cu) with nvcc from this checkout, one nvcc process per
+   source, started together;
 3. each kernel against its plain PyTorch version on the card, at the
    primary shapes (B=1024, M=16, 2M codes) with empty, partial and full
    slots (and, for the grouping kernel, pruned subgroups), at both slot
@@ -219,8 +220,8 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    phase's main path (K1 or K2 required to launch), its eval.json equal to
    the scale4 stage's fields run just after but for the measured times, K1
    and K3 torch.equal to plain on scale4's schedule (records "s4eval");
-   23c a bench subprocess at the BENCH_SMOKE sizes sent SIGTERM while its
-   second stage (deep) builds: rc 143, its last stdout line =
+   23c a bench subprocess at the BENCH_SMOKE sizes sent SIGTERM on the
+   first stderr line of its second stage's (deep's) build: rc 143, its last stdout line =
    last_result.json with terminated_by_signal; 23d bench at the
    BENCH_SMOKE sizes in a temporary cache with scale2 warm under a budget
    of scale2's warm seconds and 20 (only the warm stages run) and under
@@ -229,6 +230,20 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    records into a copy of README.md, every measured row with this card's
    nvidia-smi line. ``--only 23`` runs just this phase, building the cut
    cache first.
+24. exact assignment's kernel ([assign] lines; csrc/assign_min.cu through
+   ops/cuda/assign_min.py::top1_update, which every exact top-1 sweep of
+   ops/distances.py::streaming_topk_l2 calls once per score block): the
+   kernel torch.equal to its plain version, distances and ids, on a
+   [4096, 16384] block of SIFT-like rows against nc=2^20 SiftLikeDeviceGen
+   centroids (two blocks carried), over a ragged sweep (B 4097, 2 x 16384
+   + 77 centroids) and on duplicated centroids within a block and across a
+   block edge (the first index wins); its time per block against its
+   bound and the plain version's; then tools/assign_probe.py at nc=2^20
+   over 2^21 rows as the phase's main path: s per 1M rows of the kernel
+   path, the four passes it replaced and the GEMMs alone, ids equal but
+   at exact ties, beside the nvidia-smi line. Phases 4, 17, 20 and 21
+   require the kernel to launch in their builds; its record's launches are
+   theirs and this phase's. ``--only 24`` runs just this phase.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -254,6 +269,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 from concurrent.futures import ThreadPoolExecutor
@@ -270,6 +286,7 @@ KERNELS = {256: "ivfhnsw_tpu/ops/pallas/adc_scan.py:216",
 MIN_KERNELS = {256: "ivfhnsw_tpu/ops/pallas/adc_scan.py:545",
                1024: "ivfhnsw_tpu/ops/pallas/adc_scan.py:685"}
 SOURCE = "ivfhnsw_tpu_torch/csrc/adc_scan.cu"
+ASSIGN_SOURCE = "ivfhnsw_tpu_torch/csrc/assign_min.cu"
 GROUPING_KERNELS = {256: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:113",
                     1024: "ivfhnsw_tpu/ops/pallas/grouping_scan.py:248"}
 GROUPING_SOURCE = "ivfhnsw_tpu_torch/csrc/grouping_scan.cu"
@@ -602,11 +619,14 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b,18,19,20,21,22,23`` builds the
+    """The smoke run; ``--only 17,17b,18,19,20,21,22,23,24`` builds the
     kernels and runs only the named large-nc phases (18: its scale2 part,
     18a-18b, after phase 17; 19: the 1B path; 20, 21: the bench stages;
     22: the evidence tools, 23: the bench's run control and helpers, each
-    building what it needs; a partial run: no kernels line, no result)."""
+    building what it needs; 24: exact assignment's kernel; ``s4full``:
+    K1-K4 on a full-size scale4 build in the bench tool's cache,
+    :func:`run_scale4_kernels`; a partial run: no kernels line, no
+    result)."""
     import torch
     t_command = time.perf_counter()
     only = (argv[argv.index("--only") + 1].split(",") if "--only" in argv
@@ -634,7 +654,7 @@ def main(argv: list) -> int:
     from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
     t0 = time.perf_counter()
     sos = kbuild.build_all(["adc_scan", "grouping_scan", "grouping_lab",
-                            "scan_lab"])
+                            "scan_lab", "assign_min"])
     tk._entry("ivf_adc_scan_slots")
     tk._entry("ivf_adc_scan_slots_min")
     tg._kernel()
@@ -643,6 +663,8 @@ def main(argv: list) -> int:
     from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
     for name in sl.VARIANTS:
         sl._entry(name)
+    from ivfhnsw_tpu_torch.ops.cuda import assign_min as am
+    am._kernel()
     print(f"[build] {sos} in {time.perf_counter() - t0:.2f}s", flush=True)
     for so in sos:
         with open(so[:-3] + ".log") as f:
@@ -676,6 +698,12 @@ def main(argv: list) -> int:
         if "23" in only:
             run_bench23(device, pl, [])
             clock.mark("23")
+        if "24" in only:
+            run_assign_min(device, pl, [])
+            clock.mark("24")
+        if "s4full" in only:
+            run_scale4_kernels(device)
+            clock.mark("s4full")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -696,7 +724,7 @@ def main(argv: list) -> int:
 
 def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         s20: dict = COARSE20, onebillion: dict = ONE_B) -> list:
-    """Phases 3-23 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
+    """Phases 3-24 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
     ``s2`` / ``s20`` / ``onebillion``; phases 20-23 at the bench tool's) over
     the files ``files``; returns the kernel result records."""
     import torch
@@ -710,6 +738,7 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
     from ivfhnsw_tpu_torch.utils.roofline import scan_bound
 
     clock = PhaseClock()
+    pl = PhaseLaunches()
     # 3. kernels against plain on synthetic slots
     phase_kernels_vs_plain(device, p["nb"])
     clock.mark("3")
@@ -732,8 +761,9 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
     print(f"[files] corpus in {files.root}: base.fvecs {base_bytes} B, "
           f"learn.fvecs, query.fvecs, gt.ivecs written in "
           f"{stages['write_corpus']:.2f} s", flush=True)
-    first = {"ivfadc": run_driver(ivfadc_eval.main, files.argv("ivfadc"),
-                                  COLD["ivfadc"], "ivfadc run 1")}
+    first = {"ivfadc": pl.assign("4", lambda: run_driver(
+        ivfadc_eval.main, files.argv("ivfadc"), COLD["ivfadc"],
+        "ivfadc run 1"), "ivfadc_eval's build")}
     if tk.adc_scan_slots.launches <= 0:
         raise AssertionError("ivfadc_eval over files never launched the scan "
                              "kernel")
@@ -892,7 +922,6 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
     # 13-16. trace and counters; ORCV; device build, checkpoint and
     # vector_split; the SIFT-like corpus
     gcfg = flagship_cfg(cfg)
-    pl = PhaseLaunches()
     run_trace(device, cfg, gcfg, ds, index, gi, files, pl)
     clock.mark("13")
     run_orcv(device, cfg, ds, index, gi, files, first, pl)
@@ -950,6 +979,11 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
             torch.cuda.empty_cache()
         run_bench23(device, pl, kernels, cache=caches["21"])
         clock.mark("23")
+    # 24. exact assignment's kernel against plain, the probe at nc=2^20
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    run_assign_min(device, pl, kernels)
+    clock.mark("24")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -1503,6 +1537,20 @@ class PhaseLaunches:
         idle = [n for n in need if wrappers[n].launches <= 0]
         if idle:
             raise AssertionError(f"{what}: {idle} never launched")
+        return r
+
+    def assign(self, phase: str, fn, what: str):
+        """fn() as one main path of exact assignment: the assign_min
+        kernel's launch count set to 0 just before it and read just after,
+        filed under ``phase``; it must have launched."""
+        from ivfhnsw_tpu_torch.ops.cuda import assign_min as am
+        am.top1_update.launches = 0
+        r = fn()
+        n = am.top1_update.launches
+        if n <= 0:
+            raise AssertionError(f"{what}: assign_min never launched")
+        per = self.by_kernel.setdefault("assign_min", {})
+        per[phase] = per.get(phase, 0) + n
         return r
 
     def attach(self, kernels: list) -> None:
@@ -2283,7 +2331,9 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
     s = {**s, "nq": B, "nprobe": P, "max_codes": S["S2_MC"]}
     t = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_s2_") as cache:
-        index, q_np, gt, meta = bench.build_scale2(S, device, cache)
+        index, q_np, gt, meta = pl.assign(
+            "17", lambda: bench.build_scale2(S, device, cache),
+            "scale2's build")
     stages = {"build_scale2": time.perf_counter() - t,
               **meta["stage_seconds"]}
     q = torch.tensor(q_np, device=device)
@@ -3402,7 +3452,8 @@ def bench20_stage(device, name: str, S: dict, cache: str,
     tag = f"[bench{phase}]"
     mem_reset(device)
     t = time.perf_counter()
-    idx, q_np, gt, meta = build(S, device, cache)
+    idx, q_np, gt, meta = pl.assign(phase, lambda: build(S, device, cache),
+                                    f"{name}'s build")
     _sync(device)
     build_s = time.perf_counter() - t
     scan = "grouping_scan_slots" if grouping else "adc_scan_slots"
@@ -3860,12 +3911,12 @@ def run_bench23(device, pl: PhaseLaunches, kernels: list,
     required to launch), its eval.json against the bench stage's fields
     run just after (equal but for the measured times), K1 and K3
     torch.equal to plain on scale4's schedule (records "s4eval"); 23c a
-    bench subprocess at the BENCH_SMOKE sizes sent SIGTERM once its second
-    stage builds (rc 143, its one more stdout line = last_result.json,
-    terminated_by_signal in deep); 23d bench runs at the BENCH_SMOKE sizes
-    in a temporary cache: scale2 warmed, then a budget of its warm seconds
-    and 20 (below every cold stage's estimate: only the warm stages run),
-    then budget 0 (every stage skipped), each skipped stage with its
+    bench subprocess at the BENCH_SMOKE sizes sent SIGTERM on the first
+    line of its second stage's build, read from its stderr pipe (rc 143,
+    its one more stdout line = last_result.json, terminated_by_signal in
+    deep); 23d bench runs at the BENCH_SMOKE sizes in a temporary cache:
+    scale2 warmed, then a budget of its warm seconds and 20 (below every
+    cold stage's estimate: only the warm stages run), then budget 0 (every stage skipped), each skipped stage with its
     marker and no field; 23e tools/render_results.py on 23c and 23d's
     records into a copy of README.md, every measured row carrying this
     card's line."""
@@ -3958,40 +4009,46 @@ def run_bench23(device, pl: PhaseLaunches, kernels: list,
             torch.cuda.empty_cache()
         out["scale4_eval"] = ev
 
-        # 23c. SIGTERM after the first stage line
+        # 23c. SIGTERM at the first line of the second stage's build: the
+        # child's stderr is read as it is written, so the signal follows
+        # the line at once and lands with all of deep's build still to run
         c_cache = os.path.join(tmp, "c")
         t = time.perf_counter()
-        p_err = os.path.join(tmp, "c.err")
-        with open(p_err, "w") as err:
-            p = subprocess.Popen(
-                [sys.executable, "-m", "ivfhnsw_tpu_torch.tools.bench",
-                 "--device", str(device), "--smoke", "--stages",
-                 "primary,deep,grouping_scale"], stdout=subprocess.PIPE,
-                stderr=err, text=True, cwd=root, env=_bench_env(c_cache))
-            try:
-                first = json.loads(p.stdout.readline())
-                for _ in range(1200):       # until deep's build streams
-                    with open(p_err) as f:
-                        if "streaming" in f.read():
-                            break
-                    time.sleep(0.05)
-                p.send_signal(15)
-                rest = p.stdout.read()
-                rc = p.wait(timeout=600)
-            finally:
-                p.kill()
-        lines = rest.strip().splitlines()
-        last = json.loads(lines[-1]) if lines else {}
+        p = subprocess.Popen(
+            [sys.executable, "-m", "ivfhnsw_tpu_torch.tools.bench",
+             "--device", str(device), "--smoke", "--stages",
+             "primary,deep,grouping_scale"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=root,
+            env=_bench_env(c_cache))
+        watchdog = threading.Timer(600, p.kill)
+        watchdog.start()
+        try:
+            err = []
+            for line in p.stderr:
+                err.append(line)
+                if line.startswith("deep: "):
+                    p.send_signal(15)
+                    break
+            out_c, err_c = p.communicate()
+            rc = p.returncode
+        finally:
+            watchdog.cancel()
+            p.kill()
+        lines = out_c.strip().splitlines()
+        first = json.loads(lines[0]) if lines else {}
+        last = json.loads(lines[-1]) if len(lines) > 1 else {}
         p_last = os.path.join(c_cache, "bench_smoke", "last_result.json")
-        if (rc != 143 or first["stages_done"] != ["primary"]
+        if (rc != 143 or first.get("stages_done") != ["primary"]
                 or last.get("terminated_by_signal") != 15
                 or last.get("terminated_in_stage") != "deep"
                 or last["stages_done"] != ["primary"]
                 or bench._load(p_last) != last):
-            raise AssertionError(f"bench under SIGTERM: rc {rc}, last line "
-                                 f"{json.dumps(last)[:500]}")
+            raise AssertionError(f"bench under SIGTERM: rc {rc}, {len(lines)}"
+                                 f" lines, last line {json.dumps(last)[:500]}"
+                                 f"; its stderr ends "
+                                 f"{''.join(err)[-800:]}{err_c[-800:]}")
         print(f"[bench23] bench --smoke --stages primary,deep,grouping_scale"
-              f" sent SIGTERM while deep builds: rc {rc}, last "
+              f" sent SIGTERM on deep's first build line: rc {rc}, last "
               f"line parses, terminated_by_signal 15 in stage "
               f"{last['terminated_in_stage']}, equal to last_result.json "
               f"({time.perf_counter() - t:.2f} s)", flush=True)
@@ -4051,6 +4108,196 @@ def run_bench23(device, pl: PhaseLaunches, kernels: list,
               f"'{card}', {len(rows) - len(measured)} read not measured",
               flush=True)
     return out
+
+
+# Phase 24: exact assignment's kernel at the main path's block, [4096 rows,
+# 16384 centroids] (IVFADCIndex._assign_exact_t at nc >= 16384), on the
+# scale3sl / scale4 corpus law at nc=2^20; then tools/assign_probe.py there.
+ASSIGN24 = dict(nc=1 << 20, rows=1 << 21, variant_rows=1 << 19,
+                batch=4096, block=16384)
+ASSIGN_REPLACES = ("none: XLA's fusion in ivfhnsw_tpu/ops/distances.py:"
+                   "115-136 (streaming_topk_l2 at k=1, assign_top1 :147)")
+
+
+def assign_both(ip, qsq, psq, best, off: int, what: str):
+    """top1_update (the kernel on the card) and top1_update_plain on the
+    same inputs from copies of ``best``; raises unless torch.equal, both
+    distances and ids. Returns the kernel's (best_d, best_i)."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda import assign_min as am
+    k = (best[0].clone(), best[1].clone())
+    p = (best[0].clone(), best[1].clone())
+    am.top1_update(ip, qsq, psq, *k, off)
+    am.top1_update_plain(ip, qsq, psq, *p, off)
+    if ip.device.type == "cuda":
+        torch.cuda.synchronize()
+    if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+        bad = int(((k[0] != p[0]) | (k[1] != p[1])).sum())
+        raise AssertionError(f"assign_min {what}: {bad} rows differ from "
+                             "the plain version")
+    return k
+
+
+def run_assign_min(device, pl: PhaseLaunches, kernels: list,
+                   a: dict = ASSIGN24) -> dict:
+    """Phase 24 ([assign] lines): the assign_min kernel torch.equal to its
+    plain version on three cases (a main-path block of SIFT-like rows
+    against nc=2^20 centroids, two blocks carried; a ragged sweep; ties),
+    its time per block against its bound and the plain version's, then
+    tools/assign_probe.py at ``a``'s sizes as the phase's main path; adds
+    the kernel's record to ``kernels``, its launches those of every main
+    path filed so far in ``pl``. Returns the probe's record."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda import assign_min as am
+    from ivfhnsw_tpu_torch.tools import assign_probe, bench
+    from ivfhnsw_tpu_torch.utils.roofline import bound
+    from ivfhnsw_tpu_torch.utils.siftlike import SiftLikeDeviceGen
+    S = bench.FULL
+    B, C, nc = a["batch"], a["block"], a["nc"]
+    sg = SiftLikeDeviceGen(device, n_classes=S["S3SL_NCLS"],
+                           sigma=S["S3SL_SIGMA"], seed=7,
+                           skew=S["S3SL_SKEW"])
+    cents = sg.batch_device(11, nc)
+    x = sg.batch_device(12, B + 1)
+    sg.release()
+    psq, xsq = (cents * cents).sum(-1), (x * x).sum(-1)
+
+    # 1. the main path's block, the first from +inf, the second carried
+    best = (torch.full((B,), float("inf"), device=device),
+            torch.zeros(B, dtype=torch.int64, device=device))
+    for s in (0, C):
+        ip = x[:B] @ cents[s:s + C].T
+        prev = best
+        best = assign_both(ip, xsq[:B], psq[s:s + C], best, s,
+                           f"[{B}, {C}] block at {s}")
+    moved = int((best[1] != prev[1]).sum())
+    args = (ip, xsq[:B], psq[C:2 * C])
+    scratch = (prev[0].clone(), prev[1].clone())
+    ms = device_ms(lambda: am.top1_update(*args, *scratch, C))
+    plain_ms = device_ms(lambda: am.top1_update_plain(*args, *scratch, C))
+    rec = {"name": "assign_min", "route": "cuda", "source": ASSIGN_SOURCE,
+           "replaces": None, "replaces_note": ASSIGN_REPLACES,
+           "launches": 0, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms,
+           **bound(B * C * 4 + B * 4 + C * 4 + 2 * B * 12, 3 * B * C),
+           "library_ms": None}
+    print(f"[assign] kernel torch.equal to plain on a [{B}, {C}] block of "
+          f"SIFT-like rows against nc={nc} centroids, two blocks carried "
+          f"({moved} rows moved by the second): kernel {ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+          f"{rec['bound_ms'] / ms:.0%}), plain {plain_ms:.4f} ms; "
+          f"{smi_line()}", flush=True)
+    del ip, args, scratch
+
+    # 2. a ragged sweep: B + 1 rows, 2 blocks and 77 centroids
+    n = 2 * C + 77
+    pts = cents[:n]
+    d_k, i_k = torch_sweep(x, pts, C)
+    best = (torch.full((B + 1,), float("inf"), device=device),
+            torch.zeros(B + 1, dtype=torch.int64, device=device))
+    for s in range(0, n, C):
+        best = assign_both(x @ pts[s:s + C].T, xsq, psq[s:min(s + C, n)],
+                           best, s, f"ragged sweep at {s}")
+    if not (torch.equal(d_k, best[0]) and torch.equal(i_k, best[1])):
+        raise AssertionError("streaming_topk_l2 differs from the kernel "
+                             "carried by hand")
+    # 3. duplicated centroids, within a block and across a block edge
+    dup = cents[:3 * C].clone()
+    pairs = ((5, 20), (5, C + 9), (C - 1, 2 * C + 3), (700, 701))
+    for i, j in pairs:
+        dup[j] = dup[i]
+    q = dup[[j for _, j in pairs]]
+    d_t, i_t = torch_sweep(q, dup, C)
+    best = (torch.full((len(pairs),), float("inf"), device=device),
+            torch.zeros(len(pairs), dtype=torch.int64, device=device))
+    qs, ds = (q * q).sum(-1), (dup * dup).sum(-1)
+    for s in range(0, 3 * C, C):
+        best = assign_both(q @ dup[s:s + C].T, qs, ds[s:s + C], best, s,
+                           f"ties at {s}")
+    # the first centroid equal to each query (the pair's first, unless the
+    # corpus drew an earlier copy itself)
+    want = [int((dup == dup[j]).all(1).nonzero()[0]) for _, j in pairs]
+    if i_t.tolist() != want or best[1].tolist() != want:
+        raise AssertionError(f"ties: ids {i_t.tolist()}, expected {want}")
+    print(f"[assign] kernel torch.equal to plain over a ragged sweep (B "
+          f"{B + 1}, {n} centroids: a {n - 2 * C}-column last block) and on "
+          f"duplicated centroids {list(pairs)} (ids {want}: the first "
+          f"index wins, within a block and across block edges)", flush=True)
+    del cents, x, dup, q, pts
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the probe, the phase's main path
+    dev = "cpu" if device.type == "cpu" else str(device)
+    variants = ",".join(f"{B}:{C}:{r}" for r in ("kernel", "passes", "gemm"))
+    pr = pl.assign("24", lambda: assign_probe.main(
+        ["-nc", str(nc), "-rows", str(a["rows"]), "-variant_rows",
+         str(a["variant_rows"]), "-variants", variants, "-device", dev]),
+        "assign_probe")
+    v = {r["reduce"]: r for r in pr["variants"]}
+    off_tie = {k: r["labels_moved_off_tie"] for k, r in v.items()
+               if r["labels_moved_off_tie"]}
+    if off_tie or v["kernel"]["labels_equal"] != 1.0:
+        raise AssertionError(f"assign_probe: ids moved off exact ties "
+                             f"{off_tie}, kernel labels_equal "
+                             f"{v['kernel']['labels_equal']}")
+    print(f"[assign] tools/assign_probe.py at nc={nc}: s per 1M rows, "
+          f"production (kernel) {pr['production_seconds_per_1m_rows']:.3f} "
+          f"over {a['rows']} rows; over {a['variant_rows']} rows kernel "
+          f"{v['kernel']['seconds_per_1m_rows']:.3f}, four passes "
+          f"{v['passes']['seconds_per_1m_rows']:.3f}, GEMMs alone "
+          f"{v['gemm']['seconds_per_1m_rows']:.3f}; ids equal "
+          f"(passes: {v['passes']['labels_equal']} equal, the rest at "
+          f"exact ties); projected exact assignment s "
+          + json.dumps({k: round(t, 1) for k, t in
+                        pr["projected_exact_assign_seconds"].items()})
+          + f"; {pr['device']}", flush=True)
+    by = pl.by_kernel.get("assign_min", {})
+    rec["launches_by_phase"] = dict(by)
+    rec["launches"] = sum(by.values())
+    kernels.append(rec)
+    return pr
+
+
+def run_scale4_kernels(device, cache: str | None = None) -> list:
+    """``--only s4full``: K1-K4 each torch.equal to its plain version and
+    timed, bound beside them, on the schedule of the full-size scale4 build
+    in the bench tool's cache (``tools/bench.py``'s, unless ``cache``),
+    under the stage's profiled budget at nprobe 128 / max_codes 100k, at
+    both slot widths ([s4full] lines). Run it after ``python -m
+    ivfhnsw_tpu_torch.tools.bench --stages scale3sl,scale4`` in the same
+    chip call: the cache does not outlive a call. Returns the records."""
+    import torch
+    from ivfhnsw_tpu_torch.tools import bench
+    from ivfhnsw_tpu_torch.utils.config import SearchParams
+    S = bench.sizes(False)
+    cache = cache or bench.cache_root(False)
+    if not bench._all_present(cache, bench.NEED["scale4"].probe[:1]):
+        raise SystemExit(f"s4full: no scale4 build in {cache}")
+    idx, q_np, _, _ = bench.build_scale4(S, device, cache)
+    recs = [{"name": f"adc_scan_slots{m}_gran{g}"} for g in (256, 1024)
+            for m in ("", "_min")]
+    q = torch.tensor(q_np, device=device)
+    nb = idx._ensure_store().ntotal
+    for layout in ("chunk", "quad"):
+        idx.scan_layout = layout
+        prm, _ = bench.profiled(idx, q_np, SearchParams(
+            k=S["K"], nprobe=S["S3_NPROBE"], max_codes=S["S3_MC"]))
+        gran = idx.scan_gran()
+        check_scan_kernels((*idx.scan_inputs(q, prm, gran), gran), recs,
+                           "s4full", "[s4full]", f"scale4's schedule ({nb} "
+                           f"rows, nc {idx.nc})", {"nb": nb})
+    print(f"[s4full] {smi_line()}", flush=True)
+    idx.release_device()
+    return recs
+
+
+def torch_sweep(q, points, block: int):
+    """streaming_topk_l2's top-1 of ``q`` over ``points`` (the production
+    sweep: the kernel on the card) as ([B], [B]) tensors."""
+    from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+    d, i = streaming_topk_l2(q, points, 1, block=block)
+    return d[:, 0], i[:, 0]
 
 
 if __name__ == "__main__":

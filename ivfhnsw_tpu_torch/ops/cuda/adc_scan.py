@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from ivfhnsw_tpu_torch.ops.cuda.build import check_arg as _check
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu_torch.ops.grouping import probe_budget
 from ivfhnsw_tpu_torch.ops.pq import _pq_ip_luts
@@ -156,21 +157,6 @@ def _entry(name: str):
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device, fn: str = "adc_scan_slots") -> None:
-    """Raise unless ``t`` has the device, dtype, shape and contiguity that
-    kernel wrapper ``fn`` passes to its kernel."""
-    if t.device != device:
-        raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} is not contiguous")
 
 
 def _scan(wrapper, plain, out_cols: int, lut: torch.Tensor,

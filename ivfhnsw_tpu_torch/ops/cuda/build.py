@@ -10,7 +10,7 @@ The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library in ``lib<name>_<hash>.log``.
 
 Nothing here runs at import time: the CPU-only test environment imports this
-module but never builds.
+module but never builds. :func:`check_arg` is the wrappers' argument check.
 """
 
 from __future__ import annotations
@@ -89,6 +89,21 @@ def build_all(names) -> list[str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return sos
+
+
+def check_arg(name: str, t, dtype, shape: tuple, device, fn: str) -> None:
+    """Raise unless tensor ``t`` has the device, dtype, shape and
+    contiguity that kernel wrapper ``fn`` passes to its kernel as argument
+    ``name``."""
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")
 
 
 @functools.lru_cache(maxsize=None)

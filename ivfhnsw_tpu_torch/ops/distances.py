@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ivfhnsw_tpu_torch.ops.cuda.assign_min import top1_update
 from ivfhnsw_tpu_torch.ops.topk import (binned_topk_smallest, merge_topk,
                                         topk_smallest)
 
@@ -101,10 +102,14 @@ def streaming_topk_l2(queries: torch.Tensor, points: torch.Tensor, k: int,
 
     The [B, block] score block is formed in place, in the order
     (||q||^2 - 2 q.p) + ||p||^2, so a step holds one such block. At k=1
-    (assignment, the in-stream ground truth) a block is reduced by a
-    minimum, the first index among equal distances: one read of the block
-    where ``torch.topk`` cost half the exact assignment's time at nc=2^20
-    (``tools/assign_probe.py``)."""
+    (assignment, the Lloyd passes, the in-stream ground truth; exact
+    reduce, not approx) a step computes only the GEMM and hands the block
+    to :func:`~ivfhnsw_tpu_torch.ops.cuda.assign_min.top1_update`, which
+    forms the distances in the same order, takes each row's minimum (the
+    first index among equal distances) and keeps it where strictly nearer
+    than the running best, so an earlier block wins a tie: one read of the
+    block on the card, where four passes over it took more than half the
+    exact assignment's time at nc=2^20 (``tools/assign_probe.py``)."""
     if exact_reduce not in ("topk", "binned"):
         raise ValueError(f"exact_reduce must be 'topk' or 'binned', "
                          f"got {exact_reduce!r}")
@@ -118,6 +123,12 @@ def streaming_topk_l2(queries: torch.Tensor, points: torch.Tensor, k: int,
     best_d = torch.full((B, k), float("inf"), dtype=torch.float32,
                         device=queries.device)
     best_i = torch.zeros((B, k), dtype=torch.int64, device=queries.device)
+    if kk == 1 and not approx and exact_reduce == "topk":
+        bd, bi = best_d[:, 0], best_i[:, 0]       # contiguous views
+        for s in range(0, n, block):
+            top1_update(queries @ points[s:s + block].T, q_sqnorm,
+                        point_sqnorms[s:s + block], bd, bi, s)
+        return best_d, best_i
     for s in range(0, n, block):
         # -2 * ip + ||q||^2 is ||q||^2 - 2 * ip bit for bit
         dists = (queries @ points[s:s + block].T).mul_(-2.0)
@@ -126,8 +137,6 @@ def streaming_topk_l2(queries: torch.Tensor, points: torch.Tensor, k: int,
             blk_d, blk_j = approx_topk_smallest(dists, kk, recall_target)
         elif exact_reduce == "binned":
             blk_d, blk_j = binned_topk_smallest(dists, kk, bin_size=32)
-        elif kk == 1:
-            blk_d, blk_j = dists.min(dim=1, keepdim=True)
         else:
             blk_d, blk_j = topk_smallest(dists, kk)
         best_d, best_i = merge_topk(best_d, best_i, blk_d, blk_j + s, k)

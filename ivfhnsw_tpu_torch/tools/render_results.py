@@ -50,7 +50,7 @@ ROWS = {
     "scale3sl": ("134M SIFT-like, nc 2^20, nprobe 128, max_codes 100k",
                  "scale3sl_", (1, 10, 100)),
     "scale4": ("268M SIFT-like on one card, nc 2^20, nprobe 128",
-               "scale4_", (1, 10)),
+               "scale4_", (1, 10, 100)),
     "grouping_scale": ("33.5M SIFT-like, nc 2^17, nsubc 64, OPQ, pruning",
                        "grouping_scale_", (1, 10, 100)),
     "search_1b": ("the 1B search (report of tools/search_1b.py)",
@@ -70,7 +70,8 @@ NOTES = {
     "scale3sl": (("R@1 / ceiling", "scale3sl_recall_frac_of_ceiling_at_1"),
                  ("assignment", "scale3sl_assignment_mode")),
     "scale4": (("device GiB in use", "scale4_hbm_in_use_gb"),
-               ("extend s", "scale4_extend_seconds")),
+               ("extend s", "scale4_extend_seconds"),
+               ("host peak RSS GiB", "scale4_host_peak_rss_gib")),
     "grouping_scale": (("µs/query pruning off",
                         "grouping_scale_us_per_query_pruning_off"),
                        ("assignment", "grouping_scale_assignment_mode")),

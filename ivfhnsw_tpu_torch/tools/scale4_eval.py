@@ -25,10 +25,12 @@ import time
 
 from ivfhnsw_tpu_torch.tools import bench, scale3
 
-# The fields of eval_scale4 that are measured times and so differ between
-# two runs on the same build; every other field is a function of the build.
+# The fields of eval_scale4 that are measured (times, the process's peak
+# host RSS) and so differ between two runs on the same build; every other
+# field is a function of the build.
 TIMED = ("scale4_qps_nprobe128_mc100k", "scale4_us_per_query",
-         "scale4_us_per_query_single_launch", "scale4_ceiling_seconds")
+         "scale4_us_per_query_single_launch", "scale4_ceiling_seconds",
+         "scale4_host_peak_rss_gib")
 
 
 def run(S: dict, device, cache: str, smoke: bool = False) -> dict:

@@ -157,6 +157,11 @@ def test_estimates_are_the_cards():
         assert sum(s for _, s in n.discounts) <= n.fresh, name
     assert tb.NEED["scale4"].fresh > tb.NEED["scale3sl"].fresh
     assert tb.NEED["scale4"].discounts[:3] == tb.NEED["scale3sl"].discounts
+    # scale4 from an empty cache is scale3sl and then its extension, and
+    # the card ran the two whole in one call under --budget-s 3300
+    s3, s4 = tb.NEED["scale3sl"], tb.NEED["scale4"]
+    assert s4.fresh == pytest.approx(s3.fresh + s4.discounts[-1][1])
+    assert s4.fresh < 3300
 
 
 def test_budget_charges_the_warm_reserve(tmp_path):
