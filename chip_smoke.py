@@ -244,6 +244,17 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    at exact ties, beside the nvidia-smi line. Phases 4, 17, 20 and 21
    require the kernel to launch in their builds; its record's launches are
    theirs and this phase's. ``--only 24`` runs just this phase.
+25. the search properties of SURVEY.md §4 (tests/test_properties.py) on
+   phase 4's index ([props] lines): with engine "fused" through
+   search_device at each slot width x top-k (K1/K2 wide, K3/K4 two-phase),
+   R@100 at k=100 monotone within 1e-9 over nprobe 8 / 32 / 128 / 512 and
+   over max_codes 2k / 10k / 50k / unlimited at nprobe 128; every point
+   searched twice and torch.equal; distances sorted; k=400 at nprobe 1
+   padded with +inf and label -1 exactly past the probed list's size
+   (lists hold 488 codes on average, so some hold fewer than 400); every
+   combination equal to chunk-wide's under the cross-engine contract; each
+   combination's kernel must launch, its launches filed under phase 25.
+   ``--only 25`` runs just this phase, building the primary index first.
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -619,11 +630,12 @@ def run_files(device, files: SmokeFiles, ds, first: dict) -> list:
 
 
 def main(argv: list) -> int:
-    """The smoke run; ``--only 17,17b,18,19,20,21,22,23,24`` builds the
+    """The smoke run; ``--only 17,17b,18,19,20,21,22,23,24,25`` builds the
     kernels and runs only the named large-nc phases (18: its scale2 part,
     18a-18b, after phase 17; 19: the 1B path; 20, 21: the bench stages;
     22: the evidence tools, 23: the bench's run control and helpers, each
-    building what it needs; 24: exact assignment's kernel; ``s4full``:
+    building what it needs; 24: exact assignment's kernel; 25: the search
+    properties on the primary index, which it builds; ``s4full``:
     K1-K4 on a full-size scale4 build in the bench tool's cache,
     :func:`run_scale4_kernels`; a partial run: no kernels line, no
     result)."""
@@ -704,6 +716,9 @@ def main(argv: list) -> int:
         if "s4full" in only:
             run_scale4_kernels(device)
             clock.mark("s4full")
+        if "25" in only:
+            run_props(device, *primary_index(device), pl)
+            clock.mark("25")
         print("[time] phases_s " + json.dumps(clock.seconds) + "; launches "
               + json.dumps(pl.by_kernel) + f"; command_s "
               f"{time.perf_counter() - t_command:.2f}", flush=True)
@@ -724,7 +739,7 @@ def main(argv: list) -> int:
 
 def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         s20: dict = COARSE20, onebillion: dict = ONE_B) -> list:
-    """Phases 3-24 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
+    """Phases 3-25 on ``device`` at the sizes ``p`` (phases 17 / 17b / 19:
     ``s2`` / ``s20`` / ``onebillion``; phases 20-23 at the bench tool's) over
     the files ``files``; returns the kernel result records."""
     import torch
@@ -984,6 +999,11 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         torch.cuda.empty_cache()
     run_assign_min(device, pl, kernels)
     clock.mark("24")
+    # 25. SURVEY.md §4's properties on phase 4's index, K1-K4
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    run_props(device, index, ds, pl)
+    clock.mark("25")
     pl.attach(kernels)
     print("[time] phases_s " + json.dumps(clock.seconds), flush=True)
     return kernels
@@ -4290,6 +4310,117 @@ def run_scale4_kernels(device, cache: str | None = None) -> list:
     print(f"[s4full] {smi_line()}", flush=True)
     idx.release_device()
     return recs
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: SURVEY.md §4's search properties on the primary index
+# ---------------------------------------------------------------------------
+
+# The sweeps of tests/test_properties.py carried to the primary point: k=100,
+# nprobe over 8 / 32 / 128 / 512 (max_codes 0), max_codes over 2k / 10k /
+# 50k / unlimited at nprobe 128 (its lists average 488 codes, so every
+# budget but the last binds), k=400 at nprobe 1; searched in batches of
+# 1024 (a wide output at nprobe 512 is 4 MB a query).
+PROPS = dict(k=100, nprobes=(8, 32, 128, 512), mc_nprobe=128,
+             max_codes=(2000, 10000, 50000, 0), pad_k=400, batch=1024)
+PROP_COMBOS = [(layout, topk) for layout in ("chunk", "quad")
+               for topk in ("wide", "twophase")]
+
+
+def primary_index(device):
+    """``--only 25``: the primary index and its dataset, built by the
+    IVFADC driver on the synthetic corpus as phase 4 builds it from files."""
+    from ivfhnsw_tpu_torch.drivers import ivfadc_eval
+    p = PRIMARY
+    argv = ["-synthetic", "0", "-device", str(device)]
+    for f in ("d", "nc", "code_size", "nb", "nt", "nq", "k", "nprobe",
+              "max_codes"):
+        argv += [f"-{f}", str(p[f])]
+    r = ivfadc_eval.main(argv)
+    return r["index"], r["dataset"]
+
+
+def run_props(device, index, ds, pl: PhaseLaunches, s: dict = PROPS) -> None:
+    """Phase 25 ([props] lines): SURVEY.md §4's five properties on the
+    primary index through search_device with engine "fused", at each slot
+    width x top-k (K1/K2 wide, K3/K4 two-phase), each combination one main
+    path whose kernel must launch (filed under "25"): R@100 monotone in
+    nprobe and in max_codes within 1e-9; every sweep point searched twice
+    and torch.equal; distances sorted; k=400 at nprobe 1 padded with +inf
+    and -1 exactly past the probed list's size. Every combination's results
+    equal the first's under the cross-engine contract. Raises on any
+    failure."""
+    import torch
+    from ivfhnsw_tpu_torch.utils.config import SearchParams
+    from ivfhnsw_tpu_torch.utils.recall import recall_at_k
+    q = torch.tensor(ds.queries, device=device)
+    gt = ds.gt
+    sizes = np.diff(index.store.list_offsets)
+    probe1 = index.assign(ds.queries)
+    points = ([SearchParams(k=s["k"], nprobe=n, max_codes=0)
+               for n in s["nprobes"]]
+              + [SearchParams(k=s["k"], nprobe=s["mc_nprobe"], max_codes=m)
+                 for m in s["max_codes"]])
+    pad = SearchParams(k=s["pad_k"], nprobe=1, max_codes=0)
+    index.engine = "fused"
+    first = None
+    for layout, topk in PROP_COMBOS:
+        index.scan_layout, index.scan_topk = layout, topk
+        what = f"[props] {layout} {topk}"
+        need = ["adc_scan_slots_min" if topk == "twophase"
+                else "adc_scan_slots"]
+
+        def sweep():
+            res = []
+            for p in points + [pad]:
+                d1, l1 = index.search_device(q, p, batch=s["batch"])
+                d2, l2 = index.search_device(q, p, batch=s["batch"])
+                if not (torch.equal(d1, d2) and torch.equal(l1, l2)):
+                    raise AssertionError(f"{what}: two calls differ at {p}")
+                res.append((d1.cpu().numpy(), l1.cpu().numpy()))
+            return res
+        res = pl.counted("25", index.scan_gran(), need, sweep, what)
+        n = len(s["nprobes"])
+        rs = [recall_at_k(l, gt, ks=(100,))[100] for _, l in res[:-1]]
+        for name, r in (("nprobe", rs[:n]), ("max_codes", rs[n:])):
+            if not all(b >= a - 1e-9 for a, b in zip(r, r[1:])):
+                raise AssertionError(f"{what}: R@100 not monotone in "
+                                     f"{name}: {r}")
+        for d, _ in res[:-1]:
+            if not np.isfinite(d).all() or (np.diff(d, axis=1) < -1e-6).any():
+                raise AssertionError(f"{what}: distances not finite and "
+                                     "sorted")
+        d, l = res[-1]
+        short = ~np.isfinite(d)
+        filled = (~short).sum(1)
+        if (d.shape != (ds.nq, s["pad_k"]) or not short.any()
+                or (l[short] != -1).any() or (l[~short] < 0).any()
+                or not np.array_equal(filled,
+                                      np.minimum(sizes[probe1], s["pad_k"]))
+                or (np.diff(short.astype(np.int8), axis=1) < 0).any()):
+            raise AssertionError(f"{what}: k={s['pad_k']} at nprobe 1 not "
+                                 "padded with +inf and -1 past the list")
+        if first is None:
+            first = res
+        else:
+            for (d1, l1), (d2, l2), p in zip(first, res, points + [pad]):
+                fin = np.isfinite(d1)
+                if not np.array_equal(fin, np.isfinite(d2)):
+                    raise AssertionError(f"{what}: +inf places differ from "
+                                         f"{PROP_COMBOS[0]} at {p}")
+                assert_same(np.where(fin, d1, 0), l1, np.where(fin, d2, 0),
+                            l2, f"{what} vs {PROP_COMBOS[0]} at {p}")
+        print(f"{what}: R@100 over nprobe {list(s['nprobes'])} {rs[:n]}, "
+              f"over max_codes {list(s['max_codes'])} at nprobe "
+              f"{s['mc_nprobe']} {rs[n:]}: monotone; {len(points) + 1} "
+              f"points searched twice, torch.equal; distances sorted; "
+              f"k={s['pad_k']} at nprobe 1: {int(short.any(1).sum())} of "
+              f"{ds.nq} queries padded, {int(short.sum())} places +inf / -1"
+              + ("" if first is res else f"; equal to {PROP_COMBOS[0]} "
+                 "under the contract"), flush=True)
+    print(f"[props] launches {json.dumps(pl.by_kernel)}; {smi_line()}",
+          flush=True)
+    index.scan_layout, index.scan_topk = "auto", "auto"
 
 
 def torch_sweep(q, points, block: int):

@@ -107,7 +107,9 @@ def _row(stage: str, entry: dict | None) -> str:
     ceil = [f.get(f"{ceil_key}{k}") for k in ks]
     if any(c is not None for c in ceil):
         rec += " (ceiling " + " / ".join(_num(c) for c in ceil) + ")"
-    build = f.get(pre + "build_seconds") if pre else None
+    # build_1b's report names its build time build_1b_seconds (bench.py)
+    build = f.get(pre + "build_seconds", f.get(pre + "seconds")) if pre \
+        else None
     notes = "; ".join(f"{label} {_num(f.get(key))}"
                       for label, key in NOTES.get(stage, ()))
     card = entry["device"] + (", smoke sizes" if entry.get("smoke") else "")

@@ -70,7 +70,9 @@ def test_stale_number_fails_check(tmp_path, field):
                     results]) == 0
     with open(results) as f:
         snap = json.load(f)
-    stage = next(iter(snap["stages"]))
+    # the first stage in the table's order: its row shows both fields
+    # (the snapshot's first key, build_1b, shows neither)
+    stage = next(s for s in rr.ROWS if s in snap["stages"])
     pre = rr.ROWS[stage][1]
     snap["stages"][stage]["fields"][pre + field] = 0.123456
     with open(results, "w") as f:
