@@ -34,7 +34,8 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    both; results equal to phase 4's wide engine on every query, and at
    k=1 and k=64 on 512 queries; on the path's own schedule for one
    8192-query batch the min kernel against its plain version (bit-equal,
-   both timed) and each layer of the two-phase search_core timed; then
+   both timed), against its first port (scan_lab.cu's direct_min_kernel)
+   in turns, and each layer of the two-phase search_core timed; then
    whole-search walls of two-phase against wide at batch 1024 and 8192,
    in turns;
 6b. banks (tools/bank_probe.py): on the main path's schedule for one
@@ -47,6 +48,18 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    row 0 (codes from L1); each torch.equal to its plain version on each,
    then timed, with the staging of the LUT alone, and each production
    kernel against its direct twin in turns; no time is asserted;
+6c. mprobe (tools/min_probe.py): on the same schedule at both widths, over
+   the real store and the conflict-free one, the min kernel's design steps
+   (csrc/min_scan.cuh through scan_lab.py's MIN_STEPS: the first port, its
+   compute-only and loads-only split, one switch a step, the production
+   setting and its split, the prefetching lead) and the production
+   kernel, each
+   torch.equal to its plain version (a full step also to production) and
+   timed against the first port in turns, with the staging alone; the
+   shared-memory wavefronts that the store's codes cost the lookups and the
+   floor they set; each kernel's SASS instructions per warp and code from
+   cuobjdump; the lab's min-step launch counts reset before and required
+   to grow; [mprobe] lines, K3/K4 records gain "mprobe";
 7. determinism: k-means at the primary point (200k learn rows, nc=4096,
    15 iterations) twice from one seed gives the same centroids, bit for bit;
 8. the Grouping+Pruning+OPQ main path at the flagship point (the JAX
@@ -99,7 +112,9 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    2M, the last segment's recall beside the one-shot build's); [files]
    lines with every stage's seconds cold and warm and the files' sizes.
 13-16. trace and counters, ORCV, the device-resident build with
-   checkpoints and vector_split, the SIFT-like corpus (see their functions).
+   checkpoints and vector_split, the SIFT-like corpus (see their functions;
+   phase 16 ends with 6c's probe on the SIFT-like index's real store,
+   [mprobe siftlike] lines, K3/K4 records gain "siftlike_mprobe").
 17. the large-nc path at the JAX bench's scale2 point (bench.py:66-75,
    :957-1075), nothing cut, built by the port's bench tool
    (tools/bench.py::build_scale2, in a temporary cache): 134,217,728 x
@@ -256,6 +271,12 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    combination's kernel must launch, its launches filed under phase 25.
    ``--only 25`` runs just this phase, building the primary index first.
 
+Every min-kernel check on a path's schedule (phases 6, 17-23, s4full)
+also times K3/K4 against the first port in turns (10 pairs, and in how
+many of them it was the faster; phases 17 and 18a also the min steps of
+MIN_RIVALS, each torch.equal to production) and counts the lookups' bank
+conflicts (lookup_conflict_ms).
+
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
 (each input read once: LUTs, norm table, the schedule and the store rows
@@ -406,6 +427,61 @@ def phase_kernels_vs_plain(device, nb: int) -> None:
                   + f", max_abs_err={err!r}", flush=True)
             if tag == "kernel":
                 check_min_kernel(args, out, f"synthetic gran={gran}")
+
+
+# Min-scan steps (scan_lab.MIN_STEPS) that phases 17 and 18a time against
+# the first port beside production, on stores larger than L2 (dense and
+# sparse schedules): two codes a lane a step (production before it took
+# one) and the prefetching lead.
+MIN_RIVALS = ("dp4a_tma_b8", "dp4a_pf_b6")
+
+
+def first_port_turns(args, rounds: int = 5, rivals=()) -> dict:
+    """The production min kernel against the first port
+    (``scan_lab.scan_min_step`` "first_port", ``direct_min_kernel``) on
+    ``args`` (the scan wrappers' arguments, gran last), timed in turns
+    (A B B A, ``rounds`` times, CUDA events): both medians, their ratio
+    and in how many of the 2 * ``rounds`` pairs it was the faster; the
+    same under "rivals" for each step named in ``rivals``, each first held
+    torch.equal to production."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
+    from ivfhnsw_tpu_torch.tools.min_probe import in_turns, wins
+    first = sl.MIN_STEPS["first_port"]
+
+    def step(name):
+        return lambda: sl.scan_min_step(*args[:7], args[7],
+                                        sl.MIN_STEPS[name])
+    new, old, ta, tb = in_turns(lambda: tk.adc_scan_slots_min(*args),
+                                step(first.name), device_ms, rounds)
+    out = {"in_turns_ms": new, "first_port_ms": old,
+           "over_first_port": new / old, "wins": wins(ta, tb),
+           "pairs": len(ta)}
+    if rivals:
+        prod = tk.adc_scan_slots_min(*args)
+        out["rivals"] = {}
+        for name in rivals:
+            if not torch.equal(step(name)(), prod):
+                raise AssertionError(f"min step {name}: not torch.equal to "
+                                     "the production min kernel")
+            m, f, ta, tb = in_turns(step(name), step(first.name), device_ms,
+                                    rounds)
+            out["rivals"][name] = {"ms": m, "first_port_ms": f,
+                                   "over_first_port": m / f,
+                                   "wins": wins(ta, tb), "pairs": len(ta)}
+    return out
+
+
+def turns_text(r: dict) -> str:
+    """``first_port_turns``' result as the end of a line."""
+    return (f"in turns {r['in_turns_ms']:.4f} ms against the first port's "
+            f"{r['first_port_ms']:.4f} ms: "
+            f"{r['over_first_port']:.3f}x, faster in {r['wins']} of "
+            f"{r['pairs']} pairs" + "".join(
+                f"; step {n} {v['ms']:.4f} ms: {v['over_first_port']:.3f}x, "
+                f"faster in {v['wins']} of {v['pairs']}"
+                for n, v in r.get("rivals", {}).items()))
 
 
 def check_min_kernel(args, wide, what: str) -> None:
@@ -912,6 +988,11 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
                    log=lambda m: print(m, flush=True))
     clock.mark("6b")
 
+    # 6c. the min kernel's design steps against its first port
+    kernels += run_min_probe(device, index, ds.queries, params, kernels,
+                             ("real", "free"), "[mprobe]", "mprobe")
+    clock.mark("6c")
+
     # 7. determinism of k-means at the primary point
     phase_determinism(ds, p, device)
     clock.mark("7")
@@ -1151,6 +1232,7 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
         ms = device_ms(lambda: tk.adc_scan_slots_min(*args))
         plain_ms = device_ms(lambda: tk.adc_scan_slots_min_plain(*args),
                              reps=5)
+        turns = first_port_turns(args)
         layers = {"phase1_min": ms, "minima_topk": device_ms(mtopk),
                   "gather_rescan": device_ms(rescan),
                   "final_topk_ids": device_ms(final),
@@ -1161,7 +1243,8 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
               f"fill {valid / (B * nslots * gran):.3f}, rescan {ksel} slots: "
               f"kernel {ms:.4f} ms (bound {b['bound_ms']:.4f} ms by "
               f"{b['bound_by']}, lookups {b['lookup_ms']:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, max_abs_err {err!r}", flush=True)
+              f"{plain_ms:.4f} ms, max_abs_err {err!r}; "
+              f"{turns_text(turns)}", flush=True)
         print(f"[tplayers] gran={gran} B={B} ms " + json.dumps(
             {k: round(v, 4) for k, v in layers.items()}), flush=True)
         kernels.append({"name": f"adc_scan_slots_min_gran{gran}",
@@ -1169,7 +1252,7 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
                         "replaces": MIN_KERNELS[gran],
                         "launches": launches[gran], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, **b,
-                        "library_ms": None})
+                        "library_ms": None, **turns})
 
     # whole search, two-phase against wide at each width and batch, in
     # turns (A B C D ... D C B A)
@@ -1188,6 +1271,63 @@ def run_two_phase(device, cfg, ds, index, wide: dict) -> list:
               f"{1e6 * min(w) / ds.nq:.3f} us/query (best of 2)", flush=True)
     index.scan_topk = "auto"
     return kernels
+
+
+def run_min_probe(device, index, queries, params, kernels: list, stores,
+                  tag: str, key: str, steps=None) -> list:
+    """Phase 6c (and phase 16's last part): tools/min_probe.py on
+    ``index``'s schedule for one 8192-query batch at both slot widths over
+    ``stores``: each step of ``steps`` (default min_probe.SMOKE_STEPS: the
+    first port's compute-only / loads-only split, one switch a step to the
+    production setting, and production's split) and the production min
+    kernel torch.equal to its plain version and timed against the first
+    port in turns, the lookups' shared-memory wavefronts and conflict floor,
+    and (with ``key`` "mprobe") each kernel's SASS instructions per warp and
+    code; the lab's min-step launch counts reset before and required to
+    grow. Production's time in turns, the first port's, and the floors go
+    under ``key`` in the K3/K4 records of ``kernels``. Returns one kernel
+    record per step and width on the real store (none for phase 16)."""
+    from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
+    from ivfhnsw_tpu_torch.tools import min_probe
+    steps = tuple(steps or min_probe.SMOKE_STEPS)
+    for n in sl.MIN_LAUNCHES:
+        sl.MIN_LAUNCHES[n] = 0
+    recs = min_probe.run(index, queries, params, device, batch=SEARCH_BATCH,
+                         steps=steps, stores=stores, rounds=1,
+                         sass=key == "mprobe", tag=tag,
+                         log=lambda m: print(m, flush=True))
+    idle = [n for n in steps if sl.MIN_LAUNCHES[n] <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: min steps never launched: {idle}")
+    out = []
+    for gran in (256, 1024):
+        by = {(r["name"], r["store"]): r for r in recs
+              if r.get("gran") == gran}
+        prod, look = by[("production", "real")], by[("lookups", "real")]
+        rec = next(k for k in kernels
+                   if k["name"] == f"adc_scan_slots_min_gran{gran}")
+        rec[key] = {"ms": prod["ms"], "first_port_ms": prod["first_port_ms"],
+                    "over_first_port": prod["over_first_port"],
+                    "lookup_ms": look["lookup_ms"],
+                    "lookup_conflict_ms": look["lookup_conflict_ms"],
+                    "wavefronts_per_lookup":
+                        32 * look["wavefronts"] / max(look["lookups"], 1)}
+        if key != "mprobe":
+            continue
+        for name in steps:
+            r = by[(name, "real")]
+            out.append({"name": f"lab_mstep_{name}_gran{gran}",
+                        "route": "cuda", "source": LAB_SOURCE,
+                        "replaces": MIN_KERNELS[gran],
+                        "launches": sl.MIN_LAUNCHES[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "lookup_ms": r["lookup_ms"], "library_ms": None,
+                        "mode": sl.MIN_STEPS[name].mode,
+                        "first_port_ms": r.get("first_port_ms"),
+                        "over_first_port": r.get("over_first_port")})
+    return out
 
 
 def run_surface(device, cfg, ds, index, gi, gresults: dict) -> None:
@@ -2216,6 +2356,11 @@ def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
               f"torch.equal); grouping {gms:.4f} ms, lane fill {gfill:.3f} "
               f"over {gargs[6].shape[1]} slots, unpruned {kept:.3f} of "
               f"filled lanes (torch.equal to plain)", flush=True)
+    # the min kernel against its first port on this corpus's codes
+    run_min_probe(device, idx, queries, params, kernels, ("real",),
+                  "[mprobe siftlike]", "siftlike_mprobe",
+                  steps=("first_port", "comp", "loads", "comp_new",
+                         "loads_new"))
     del idx, g, q
 
     # the device generator against the host corpus
@@ -2618,13 +2763,16 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
                  **scan_bound(args, got.numel(), st.code_m + 1,
                               st.code_m + (2 if "min" in name else 1))}
             del ref
+            if "min" in name:
+                r.update(first_port_turns(args, rivals=MIN_RIVALS))
             for krec in kernels:
                 if krec["name"] == name:
                     krec["scale2"] = r
             print(f"[scale2] {name}: torch.equal to plain on this schedule "
                   f"(B={B}, {length.shape[1]} slots, lane fill {fill:.3f}): "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}",
+                  f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+                  + (f"; {turns_text(r)}" if "min" in name else ""),
                   flush=True)
         del args, wide, mins
     index.scan_topk = "auto"
@@ -2862,7 +3010,8 @@ def run_sharded_scale2(device, s2: dict, pl: PhaseLaunches,
         rank = max(slots[layout], key=slots[layout].get)
         args = (*sh.scan_inputs(q_np, prm, rank), gran)
         check_scan_kernels(args, kernels, "sharded", "[sharded]",
-                           f"shard {rank}'s schedule", {"shard": rank})
+                           f"shard {rank}'s schedule", {"shard": rank},
+                           rivals=MIN_RIVALS)
         del args
     del sh
     if device.type == "cuda":
@@ -3323,15 +3472,18 @@ def check_shard(info: dict, S: int, gran: int, k: int, P: int, mc: int,
 
 
 def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
-                       what: str, extra: dict) -> None:
+                       what: str, extra: dict, rivals=()) -> None:
     """K1 and K3 (gran 256) or K2 and K4 (gran 1024) on the schedule
     ``args`` (the scan wrappers' arguments, gran last): each torch.equal to
-    its plain version, then both timed, with the bound beside them; the
-    record (``extra`` and those numbers) goes under ``key`` in the kernel's
-    entry of ``kernels`` and on a ``tag`` line."""
+    its plain version, then both timed, with the bound beside them, and K3
+    / K4 against the first port in turns (with the min steps ``rivals``);
+    the record (``extra`` and those numbers) goes under ``key`` in the
+    kernel's entry of ``kernels`` and on a ``tag`` line."""
     import torch
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
-    from ivfhnsw_tpu_torch.utils.roofline import scan_bound
+    from ivfhnsw_tpu_torch.utils.roofline import (lookup_ms,
+                                                  lookup_wavefronts,
+                                                  scan_bound)
     gran, length, code_m = args[-1], args[5], args[2].shape[1]
     B, S = length.shape
     for name, wrapper, plain in (
@@ -3350,13 +3502,24 @@ def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
                                    warmup=1),
              **scan_bound(args, got.numel(), code_m + 1,
                           code_m + (2 if "min" in name else 1))}
+        turns = ""
+        if "min" in name:
+            r.update(first_port_turns(args, rivals=rivals))
+            looks, waves = lookup_wavefronts(args[2], args[3], args[4],
+                                             length, gran)
+            r["lookup_conflict_ms"] = lookup_ms(32 * waves, args[0].device)
+            turns = (f"; {turns_text(r)}; "
+                     f"{32 * waves / max(looks, 1):.3f} wavefronts a lookup, "
+                     "conflict floor "
+                     + ("n/a" if r["lookup_conflict_ms"] is None
+                        else f"{r['lookup_conflict_ms']:.4f} ms"))
         for krec in kernels:
             if krec["name"] == name:
                 krec[key] = r
         print(f"{tag} {name} on {what} (B={B}, {S} slots, lane fill "
               f"{r['lane_fill']:.3f}): torch.equal to plain; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}{turns}", flush=True)
         del got
 
 

@@ -1,6 +1,7 @@
 // Fused ADC posting-list scans for Hopper (sm_90a), bound to Python with
 // ctypes (ivfhnsw_tpu_torch/ops/cuda/adc_scan.py::adc_scan_slots and
-// ::adc_scan_slots_min). Two kernels over one per-lane sum.
+// ::adc_scan_slots_min). Two kernels over one per-lane sum, added in one
+// order (the min kernel's body is min_scan.cuh's).
 //
 // 1. The wide scan replaces the two TPU scan kernels of the JAX package,
 //    together with the mask-and-bias pass they leave to XLA
@@ -26,7 +27,8 @@
 //
 //    The JAX kernels store the RAW minimum and add the bias outside, on
 //    [B, n_units]. Here the bias goes inside, in the wide kernel's order
-//    (bias, norm, m = 0..M-1; one device function below computes both), so
+//    (bias, norm, m = 0..M-1: lane_sum below and min_scan.cuh's sum16 add
+//    the same terms in the same order, in f32), so
 //    mins equals the wide output's per-slot amin bit for bit, and phase 2
 //    selects slots in the same arithmetic that the rescan then reports. f32
 //    rounding is monotone, so min(fl(b + x)) = fl(b + min x) over a slot's
@@ -42,50 +44,64 @@
 //
 // What bounds them on an H100. Per valid lane a kernel reads M+1 code bytes
 // (17 B at M=16) from L2 or device memory and does M+1 random 4-byte lookups
-// in the shared-memory LUT, at five machine operations each (shift, mask,
-// add the table's base, load, add). The wide kernel also writes 4 B for
-// EVERY lane of the padded [B, nslots*gran] output, empty and tail lanes
-// included; that output is its byte bound. The min kernel writes 4 B per
-// slot, so its byte bound is the LUTs (B x 16 KB) and the touched store
-// rows, ten times below its time. Measured (PERF.md, tools/bank_probe.py):
-// over a store whose codes never meet in a bank the min kernel runs 1.2x
-// faster and the wide kernel no faster, so bank conflicts of the random
-// lookups (all lanes of a warp read one LUT row, the bank is code mod 32)
-// cost the min kernel a fifth and the wide kernel nothing; keeping two rows
-// per lane in flight or prefetching the next slot's schedule changes
-// neither, and codes served from L1 instead of L2 gain a few percent. Right
-// behind the conflicts stands the schedulers' rate: 96 machine operations
-// per warp and code on 4 schedulers per SM come to 0.25 ms of the min
-// kernel's 0.47.
-// A bank-skewed LUT that removes the conflicts (the skew variants of
-// csrc/scan_lab.cu) pays for them in operations and registers: about a
-// tenth faster as the min kernel, 30% slower as the wide kernel at 256-code
-// slots, and the two kernels must share one summation order, so it stays in
-// the lab.
+// in the shared-memory LUT. All lanes of a warp read one LUT row at 32
+// codes, and a warp instruction takes one shared-memory wavefront for each
+// distinct word in its fullest bank (bank = code mod 32).
+//   wide: it also writes 4 B for EVERY lane of the padded [B, nslots*gran]
+//         output, empty and tail lanes included; that output is its byte
+//         bound, and it keeps the first port's lookup (shift, mask, the
+//         compiler's multiply-add of the table's base, load, add).
+//   min:  it writes 4 B per slot, so its byte bound (the LUTs and the
+//         touched store rows) is a tenth of its time. Measured with
+//         tools/min_probe.py on the main path's schedule (B=8192; NVIDIA
+//         H100 80GB HBM3 at 700 W; PERF.md): the store's codes cost 1.75
+//         wavefronts a lookup (2.70 on the SIFT-like corpus), a floor of
+//         0.314 ms (0.462) where conflict-free lookups would take 0.179;
+//         the first port's lookups alone, with no code read in its loop,
+//         take 0.88x of its 0.47-0.50 ms, its code reads alone 0.55-0.57x.
+//         So the conflicts bound it, not the loads, the staging or the
+//         issue rate: its loop was 94 SASS instructions a warp and code,
+//         and cutting it to 61.5-70 speeds the kernel by about a tenth on
+//         a conflict-free store but by 2-5% on real ones. The conflicts go
+//         only with a lane-dependent summation order (the bank-skewed LUT
+//         of scan_lab.cu), and the order is fixed: the minima equal the
+//         wide kernel's slot minima bit for bit.
 //
 // What the design does about it. One thread block per query stages that
 // query's M x 256 LUT and the norm table in shared memory once (17 KB at
-// M=16: 8 blocks of 8 warps per SM, 32 registers a thread) and then walks
-// all of the query's slots, so LUT bytes come from device memory once per
-// query; reloading them per 256-code slot would read ~4x more LUT bytes than
-// code bytes. At M=16 a lane's code is one 16-byte load and every LUT row's
-// offset is an immediate. Row addresses are 64-bit (start*M passes 2^31 at
-// ~134M codes).
+// M=16), so LUT bytes come from device memory once per query; reloading
+// them per 256-code slot would read ~4x more LUT bytes than code bytes. At
+// M=16 a lane's code is one 16-byte load and every LUT row's offset is an
+// immediate. Row addresses are 64-bit (start*M passes 2^31 at ~134M codes).
 //   wide: threads own lanes tid, tid+blockDim, ..., so code reads and output
 //         stores are coalesced. The output streams through L2 once
 //         (st.global.cs) and should not evict the code store; a run of empty
 //         slots (half of a schedule's slots) is one fill of 16-byte +inf
-//         stores by all threads (fill_inf, scan_common.cuh).
-//   min:  each warp takes slots warp, warp+nwarps, ...; its lanes stride
-//         the slot's codes (coalesced rows), keep a running fminf, and a
-//         __shfl_xor_sync tree reduces the warp; lane 0 stores one float.
-//         No __syncthreads after staging and no atomics; an empty slot
-//         costs one +inf store.
+//         stores by all threads (fill_inf, scan_common.cuh). 8 blocks of 8
+//         warps per SM, 32 registers a thread.
+//   min:  min_scan.cuh's body at one setting of its switches, the one
+//         of its steps that was faster than the first port in turns at
+//         both widths on the main path and slower on no schedule measured:
+//         each warp takes slots warp, warp+nwarps, ...; its lanes stride
+//         the slot's codes from a 64-bit slot base by 32-bit offsets, each
+//         lane to its own last code; a lookup is one IDP.4A (__dp4a(word,
+//         4 << 8t, base) is the entry's shared address), the LDS at the
+//         row's immediate offset and the FADD; the tables arrive by two TMA
+//         bulk copies on an mbarrier. 61.5 SASS instructions per warp and
+//         code against the first port's 94 (ptxas unrolls the loop by
+//         two), 32 registers, 8 blocks per SM as the first port (a
+//         1024-query batch is one wave). A __shfl_xor_sync tree reduces
+//         the warp and lane 0 stores one float; no atomics, and an empty
+//         slot costs one +inf store. Two codes a lane a step (70
+//         instructions) ran as fast on the main path but 1.14x of the
+//         first port on a sparse schedule over a store larger than L2; the
+//         first port's body is scan_lab.cu's direct_min_kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "min_scan.cuh"
 #include "scan_common.cuh"
 
 namespace {
@@ -171,44 +187,12 @@ adc_scan_slots_kernel(const float* __restrict__ lut,           // [B, M, 256]
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-adc_scan_slots_min_kernel(const float* __restrict__ lut,           // [B, M, 256]
-                          const float* __restrict__ norm_tab,      // [256]
-                          const uint8_t* __restrict__ codes,       // [N, M]
-                          const uint8_t* __restrict__ norm_codes,  // [N]
-                          const int64_t* __restrict__ start,       // [B, S]
-                          const int32_t* __restrict__ len,         // [B, S]
-                          const float* __restrict__ bias,          // [B, S]
-                          float* __restrict__ mins,                // [B, S]
-                          int nslots, int M, int gran, int vec16) {
-  extern __shared__ float smem[];
-  float* s_lut = smem;               // M * 256
-  float* s_norm = smem + M * KSUB;   // 256
-
-  const int64_t b = blockIdx.x;
-  stage_tables(s_lut, s_norm, lut + b * M * KSUB, norm_tab, M);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int64_t sb = b * nslots;
-  for (int s = warp; s < nslots; s += nwarps) {
-    const int ln = min(len[sb + s], gran);   // warp-uniform
-    float best = INFINITY;
-    if (ln > 0) {
-      const int64_t st = start[sb + s];
-      const float bs = bias[sb + s];
-      for (int l = lane; l < ln; l += 32) {
-        best = fminf(best, lane_sum(s_lut, s_norm, codes, norm_codes, st + l,
-                                    bs, M, vec16));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      best = fminf(best, __shfl_xor_sync(0xffffffffu, best, o));
-    }
-    if (lane == 0) mins[sb + s] = best;
-  }
+// The production min scan: min_scan.cuh's body at the setting of its
+// switches that measured fastest (tools/min_probe.py, PERF.md).
+__global__ void __launch_bounds__(min_scan::THREADS, 8)
+adc_scan_slots_min_kernel(min_scan::Params p) {
+  min_scan::body<min_scan::ADDR_DP4A, true, 1, min_scan::STAGE_TMA, false,
+                 min_scan::FULL>(p, 0u);
 }
 
 // Shared memory of one block, opted in above the 48 KB default. Returns 0
@@ -258,15 +242,21 @@ extern "C" int ivf_adc_scan_slots_min(const void* lut, const void* norm_tab,
                                       int nslots, int M, int gran,
                                       void* stream) {
   if (B == 0 || nslots == 0) return 0;
-  const size_t smem = static_cast<size_t>(M + 1) * KSUB * sizeof(float);
+  const size_t smem = min_scan::smem_bytes(M);
   if (const int e = set_smem(adc_scan_slots_min_kernel, smem)) return e;
-  adc_scan_slots_min_kernel<<<B, THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lut), static_cast<const float*>(norm_tab),
-      static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(norm_codes),
-      static_cast<const int64_t*>(start), static_cast<const int32_t*>(len),
-      static_cast<const float*>(bias), static_cast<float*>(mins), nslots, M,
-      gran, use_vec16(M, codes));
+  const min_scan::Params p{static_cast<const float*>(lut),
+                           static_cast<const float*>(norm_tab),
+                           static_cast<const uint8_t*>(codes),
+                           static_cast<const uint8_t*>(norm_codes),
+                           static_cast<const int64_t*>(start),
+                           static_cast<const int32_t*>(len),
+                           static_cast<const float*>(bias),
+                           static_cast<float*>(mins),
+                           nslots,
+                           M,
+                           gran,
+                           use_vec16(M, codes)};
+  adc_scan_slots_min_kernel<<<B, min_scan::THREADS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,8 @@
 // per distinct word in its fullest bank. They keep the first design
 // measurable beside the production kernels on one card (the production wide
 // kernel has since gained streaming stores and one fill per run of empty
-// slots; the production min kernel still has this body).
+// slots; the production min kernel is min_scan.cuh's body, and
+// direct_min_kernel is step 0 of the min-scan steps below).
 //
 // The skew kernels (skew256, skew1024, skew256_min, skew1024_min) compute the
 // same function over a bank-skewed LUT, for M dividing 32 (M = 4, 8, 16, 32;
@@ -120,16 +121,25 @@
 // for every lane of the padded output. The lab exists to measure which of
 // those sets the pace (PERF.md); it does not change the search path.
 //
-// Every entry point has one signature: the seven inputs, the output, B,
-// nslots, M, N (rows of the store), tile_row (COMPUTE_ONLY), smem_floor (the
-// launch takes at least this much dynamic shared memory, to hold occupancy
-// equal across variants), the stream, and info: when info is not null the
-// entry point writes {blocks per SM, dynamic shared-memory bytes} there and
-// launches nothing. It returns 0 or the CUDA error of the launch.
+// The min-scan steps (ivf_lab_mstep, ops/cuda/scan_lab.py::MIN_STEPS): the
+// design steps of the production min kernel, each an instantiation of
+// min_scan.cuh's body as an extern "C" kernel named mstep_<step> (so that
+// tools/min_probe.py finds it in the library's SASS), beside step 0, the
+// first port's direct_min_kernel; see min_scan.cuh for the switches.
+//
+// Every entry point but ivf_lab_mstep has one signature: the seven inputs,
+// the output, B, nslots, M, N (rows of the store), tile_row (COMPUTE_ONLY),
+// smem_floor (the launch takes at least this much dynamic shared memory, to
+// hold occupancy equal across variants), the stream, and info: when info
+// is not null the entry point writes {blocks per SM, dynamic shared-memory
+// bytes} there and launches nothing. It returns 0 or the CUDA error of the
+// launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "min_scan.cuh"
 
 namespace {
 
@@ -1040,3 +1050,111 @@ LAB_SKEW(skew256, 256, WIDE)
 LAB_SKEW(skew1024, 1024, WIDE)
 LAB_SKEW(skew256_min, 256, MIN)
 LAB_SKEW(skew1024_min, 1024, MIN)
+
+// ---- the min-scan steps -----------------------------------------------------
+
+// mstep_<NAME>: min_scan.cuh's body at one setting of its switches, under
+// __launch_bounds__(THREADS, MINB); zero is 0 (COMPUTE's perturbation).
+#define MSTEP(NAME, MINB, ADDR, OFF32, CPS, STAGE, PF, MODE)                 \
+  extern "C" __global__ void __launch_bounds__(min_scan::THREADS, MINB)    \
+      mstep_##NAME(min_scan::Params p, uint32_t zero) {                    \
+    min_scan::body<min_scan::ADDR_##ADDR, OFF32, CPS,                      \
+                   min_scan::STAGE_##STAGE, PF, min_scan::MODE>(p, zero);   \
+  }
+// Step ids as in ops/cuda/scan_lab.py::MIN_STEPS (0 is direct_min_kernel).
+MSTEP(comp, 1, SHIFT, false, 1, LOOP, false, COMPUTE)          // 1
+MSTEP(loads, 1, SHIFT, false, 1, LOOP, false, LOADS)           // 2
+MSTEP(prmt, 1, PRMT, false, 1, LOOP, false, FULL)              // 3
+MSTEP(off32, 1, PRMT, true, 1, LOOP, false, FULL)              // 4
+MSTEP(two, 1, PRMT, true, 2, LOOP, false, FULL)                // 5
+MSTEP(stage16, 1, PRMT, true, 2, VEC, false, FULL)             // 6
+MSTEP(tma, 1, PRMT, true, 2, TMA, false, FULL)                 // 7
+MSTEP(dp4a, 1, DP4A, true, 2, VEC, false, FULL)                // 8
+MSTEP(dp4a_tma, 1, DP4A, true, 2, TMA, false, FULL)            // 9
+MSTEP(dp4a_tma_b8, 8, DP4A, true, 2, TMA, false, FULL)         // 10
+MSTEP(comp_new, 8, DP4A, true, 1, TMA, false, COMPUTE)         // 11
+MSTEP(loads_new, 8, DP4A, true, 1, TMA, false, LOADS)          // 12
+MSTEP(dp4a_pf_b6, 6, DP4A, true, 2, VEC, true, FULL)           // 13
+MSTEP(dp4a1_tma_b8, 8, DP4A, true, 1, TMA, false, FULL)        // 14
+#undef MSTEP
+
+// Min-scan step `step` on the production scan's inputs into mins [B, nslots]
+// at slot width gran. With info not null: writes {blocks per SM, dynamic
+// shared-memory bytes, registers a thread} there and launches nothing.
+// Returns 0, the CUDA error of the launch, or cudaErrorInvalidValue for an
+// unknown step or for a COMPUTE / LOADS step without 16-byte code rows.
+extern "C" int ivf_lab_mstep(int step, const void* lut, const void* norm_tab,
+                             const void* codes, const void* norm_codes,
+                             const void* start, const void* len,
+                             const void* bias, void* mins, int B, int nslots,
+                             int M, int gran, void* stream, int* info) {
+  const int vec16 =
+      (M == 16) && ((reinterpret_cast<uintptr_t>(codes) & 15u) == 0);
+  const min_scan::Params p{static_cast<const float*>(lut),
+                           static_cast<const float*>(norm_tab),
+                           static_cast<const uint8_t*>(codes),
+                           static_cast<const uint8_t*>(norm_codes),
+                           static_cast<const int64_t*>(start),
+                           static_cast<const int32_t*>(len),
+                           static_cast<const float*>(bias),
+                           static_cast<float*>(mins),
+                           nslots,
+                           M,
+                           gran,
+                           vec16};
+  const void* fn = nullptr;
+  switch (step) {
+    case 0: fn = reinterpret_cast<const void*>(direct_min_kernel); break;
+    case 1: fn = reinterpret_cast<const void*>(mstep_comp); break;
+    case 2: fn = reinterpret_cast<const void*>(mstep_loads); break;
+    case 3: fn = reinterpret_cast<const void*>(mstep_prmt); break;
+    case 4: fn = reinterpret_cast<const void*>(mstep_off32); break;
+    case 5: fn = reinterpret_cast<const void*>(mstep_two); break;
+    case 6: fn = reinterpret_cast<const void*>(mstep_stage16); break;
+    case 7: fn = reinterpret_cast<const void*>(mstep_tma); break;
+    case 8: fn = reinterpret_cast<const void*>(mstep_dp4a); break;
+    case 9: fn = reinterpret_cast<const void*>(mstep_dp4a_tma); break;
+    case 10: fn = reinterpret_cast<const void*>(mstep_dp4a_tma_b8); break;
+    case 11: fn = reinterpret_cast<const void*>(mstep_comp_new); break;
+    case 12: fn = reinterpret_cast<const void*>(mstep_loads_new); break;
+    case 13: fn = reinterpret_cast<const void*>(mstep_dp4a_pf_b6); break;
+    case 14: fn = reinterpret_cast<const void*>(mstep_dp4a1_tma_b8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool partial = step == 1 || step == 2 || step == 11 || step == 12;
+  if (partial && !vec16) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      step == 0 ? static_cast<size_t>(M + 1) * KSUB * sizeof(float)
+                : min_scan::smem_bytes(M);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (info != nullptr) {
+    int blocks = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, THREADS, smem);
+    cudaFuncAttributes attr;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+    info[0] = blocks;
+    info[1] = static_cast<int>(smem);
+    info[2] = e == cudaSuccess ? attr.numRegs : 0;
+    return static_cast<int>(e);
+  }
+  if (B == 0 || nslots == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (step == 0) {
+    const Args a = make_args(lut, norm_tab, codes, norm_codes, start, len,
+                             bias, mins, nslots, M, 0, 0);
+    direct_min_kernel<<<B, THREADS, smem, st>>>(a, gran, vec16);
+  } else {
+    uint32_t zero = 0u;
+    void* kargs[] = {const_cast<min_scan::Params*>(&p), &zero};
+    const cudaError_t e = cudaLaunchKernel(fn, dim3(B), dim3(THREADS), kargs,
+                                           smem, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -28,6 +28,14 @@ the launches of each variant:
 - :func:`scan_copy_only` (L3 ``:236 _adc_kernel_dmaonly``): its copy
   pipeline with a byte sum in place of the lookups.
 
+Beside them, the min-scan steps (:data:`MIN_STEPS`, :func:`scan_min_step`,
+:data:`MIN_LAUNCHES`): the design steps of the production min kernel
+(K3/K4, ``csrc/min_scan.cuh``) from the first port (step ``first_port``,
+``direct_min_kernel``) on, each a kernel of its own so that
+``tools/min_probe.py`` can time it against the first port in turns and
+count its machine instructions; ``comp*`` and ``loads*`` take a design's
+time apart (no code loads in the lane loop; no lookups).
+
 They take the production scan's inputs (``ops/cuda/adc_scan.py``: LUTs,
 norm table, the flat store, the slot schedule) and a :class:`Variant` of
 :data:`VARIANTS`, which names the compiled instantiation. The full-function
@@ -402,6 +410,175 @@ def scan_copy_only(lut, norm_tab, codes, norm_codes, start, length, bias,
                          bias))
 
 
+# ---- the min-scan steps ------------------------------------------------------
+
+@dataclass(frozen=True)
+class MinStep:
+    """One step of ``csrc/scan_lab.cu::ivf_lab_mstep``: its id there, the
+    kernel's name in the library (``direct_min_kernel`` or
+    ``mstep_<name>``), the switches of ``csrc/min_scan.cuh::body`` it sets
+    (``addr`` "shift" / "prmt" / "dp4a", ``off32``, codes per lane per step
+    ``cps``, ``stage`` "loop" / "vec" / "tma", prefetch ``pf``,
+    ``min_blocks`` of its launch bounds) and ``mode``: "full" (the
+    production function), "compute" (no code loads in the lane loop: each
+    lane's first row of the slot, so the minimum of the slot's first 32
+    lanes) or "loads" (no lookups: the minimum of the row words' xor,
+    :func:`min_step_plain`)."""
+
+    name: str
+    step: int
+    addr: str = "shift"
+    off32: bool = False
+    cps: int = 1
+    stage: str = "loop"
+    pf: bool = False
+    mode: str = "full"
+    min_blocks: int = 1
+
+    @property
+    def kernel(self) -> str:
+        return ("direct_min_kernel" if self.step == 0
+                else f"mstep_{self.name}")
+
+
+# Step 0 is the first port and steps 1-2 split its time (compute only,
+# loads only); steps 3-10 add one switch each (prmt, off32, two codes a
+# step, 16-byte staging, TMA staging, DP4A addressing, both, 8 blocks a
+# SM); 14 is the production setting (DP4A, one code a step, TMA staging, 8
+# blocks a SM) and 11-12 split its time; 13 loads the next step's rows
+# ahead, an open lead for sparse schedules over stores larger than L2.
+# PERF.md holds the readings of the steps no longer built (four codes a
+# step, two warps a slot, other prefetch and register settings).
+_TWO = dict(addr="prmt", off32=True, cps=2, stage="vec")
+_DP4A_TMA = dict(_TWO, addr="dp4a", stage="tma")
+_PROD = dict(addr="dp4a", off32=True, stage="tma", min_blocks=8)
+MIN_STEPS = {s.name: s for s in (
+    MinStep("first_port", 0),
+    MinStep("comp", 1, mode="compute"),
+    MinStep("loads", 2, mode="loads"),
+    MinStep("prmt", 3, addr="prmt"),
+    MinStep("off32", 4, addr="prmt", off32=True),
+    MinStep("two", 5, addr="prmt", off32=True, cps=2),
+    MinStep("stage16", 6, **_TWO),
+    MinStep("tma", 7, **{**_TWO, "stage": "tma"}),
+    MinStep("dp4a", 8, **{**_TWO, "addr": "dp4a"}),
+    MinStep("dp4a_tma", 9, **_DP4A_TMA),
+    MinStep("dp4a_tma_b8", 10, **_DP4A_TMA, min_blocks=8),
+    MinStep("comp_new", 11, **_PROD, mode="compute"),
+    MinStep("loads_new", 12, **_PROD, mode="loads"),
+    MinStep("dp4a_pf_b6", 13, **{**_TWO, "addr": "dp4a"}, pf=True,
+            min_blocks=6),
+    MinStep("dp4a1_tma_b8", 14, **_PROD),
+)}
+MIN_LAUNCHES = {name: 0 for name in MIN_STEPS}
+# The step whose switches csrc/adc_scan.cu's adc_scan_slots_min_kernel
+# instantiates (tests/test_torch_min_kernel.py holds the two together).
+PRODUCTION_STEP = "dp4a1_tma_b8"
+
+
+def min_step_plain(lut, norm_tab, codes, norm_codes, start, length, bias,
+                   gran: int, step: MinStep) -> torch.Tensor:
+    """Plain version of :func:`scan_min_step`, [B, S] f32: for a "full"
+    step ``adc_scan_slots_min_plain``; for "compute" the same over each
+    slot's first 32 lanes; for "loads" the minimum over the
+    slot's rows r of (w0 ^ w1 ^ w2 ^ w3 ^ norm_codes[r]) & 0xffffff as f32,
+    w_q the little-endian word of code bytes 4q..4q+3 (M = 16), +inf for an
+    empty slot."""
+    if step.mode == "full":
+        return adc_scan_slots_min_plain(lut, norm_tab, codes, norm_codes,
+                                        start, length, bias, gran)
+    if codes.shape[1] != 16:
+        raise ValueError(f"min step {step.name}: needs M = 16, got "
+                         f"{codes.shape[1]}")
+    if step.mode == "compute":
+        return adc_scan_slots_min_plain(
+            lut, norm_tab, codes, norm_codes, start, length.clamp(max=32),
+            bias, gran)
+    B, S = start.shape
+    if codes.shape[0] == 0:
+        return torch.full((B, S), float("inf"), device=start.device)
+    row, valid = _slot_rows(start, length.clamp(max=gran), gran)
+    b = codes.long()
+    words = [b[:, 4 * q] | b[:, 4 * q + 1] << 8 | b[:, 4 * q + 2] << 16
+             | b[:, 4 * q + 3] << 24 for q in range(4)]
+    x = (words[0] ^ words[1] ^ words[2] ^ words[3] ^ norm_codes.long()
+         ) & 0xFFFFFF
+    val = torch.where(valid, x[row].float(), float("inf"))
+    return val.view(B, S, gran).amin(dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _mstep_entry():
+    """``ivf_lab_mstep`` (built at first use): the step, 8 pointers, B,
+    nslots, M, gran, the stream, info."""
+    from ivfhnsw_tpu_torch.ops.cuda.build import load_library
+    fn = load_library("scan_lab").ivf_lab_mstep
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def min_step_occupancy(step: MinStep, M: int) -> tuple[int, int, int]:
+    """(blocks per SM, dynamic shared-memory bytes, registers a thread) of
+    ``step``'s kernel at ``M`` subquantizers on the current CUDA device."""
+    info = (ctypes.c_int * 3)()
+    rc = _mstep_entry()(step.step, *([None] * 8), 0, 0, M, CHUNK, None,
+                        info)
+    if rc != 0:
+        raise RuntimeError(f"min step {step.name}: occupancy query failed "
+                           f"with CUDA error {rc}")
+    return int(info[0]), int(info[1]), int(info[2])
+
+
+def scan_min_step(lut, norm_tab, codes, norm_codes, start, length, bias,
+                  gran: int, step: MinStep) -> torch.Tensor:
+    """Min-scan step ``step`` (one of :data:`MIN_STEPS`) on the production
+    scan's inputs at slot width ``gran``: [B, S] f32, equal to
+    :func:`min_step_plain` (a "full" step: to ``adc_scan_slots_min``, bit
+    for bit). "compute" and "loads" steps need M = 16. CPU tensors go to
+    the plain version; CUDA tensors launch the step's kernel on the current
+    stream, or raise; :data:`MIN_LAUNCHES` counts the launches."""
+    fn = "scan_min_step"
+    if MIN_STEPS.get(step.name) != step:
+        raise ValueError(f"{fn}: {step} is not one of MIN_STEPS")
+    B, S = start.shape
+    N, M = codes.shape
+    dev = lut.device
+    for name, t, dtype, shape in (
+            ("lut", lut, torch.float32, (B, M, KSUB)),
+            ("norm_tab", norm_tab, torch.float32, (KSUB,)),
+            ("codes", codes, torch.uint8, (N, M)),
+            ("norm_codes", norm_codes, torch.uint8, (N,)),
+            ("start", start, torch.int64, (B, S)),
+            ("length", length, torch.int32, (B, S)),
+            ("bias", bias, torch.float32, (B, S))):
+        _check(name, t, dtype, shape, dev, fn)
+    if gran <= 0 or max(B, S, M, gran) >= 2 ** 31 or M == 0:
+        raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M} "
+                         f"gran={gran}")
+    if step.mode != "full" and M != 16:
+        raise ValueError(f"{fn}: step {step.name} needs M = 16, got {M}")
+    args = (lut, norm_tab, codes, norm_codes, start, length, bias)
+    if dev.type == "cpu":
+        return min_step_plain(*args, gran, step)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    if step.mode != "full" and codes.data_ptr() % 16:
+        raise ValueError(f"{fn}: step {step.name} needs 16-byte aligned "
+                         "codes")
+    out = torch.empty((B, S), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _mstep_entry()(step.step, *(t.data_ptr() for t in args),
+                            out.data_ptr(), B, S, M, gran, stream, None)
+    if rc != 0:
+        raise RuntimeError(f"{fn} {step.name}: kernel launch failed with "
+                           f"CUDA error {rc}")
+    MIN_LAUNCHES[step.name] += 1
+    return out
+
+
 # Wrapper and plain version of each kind.
 FUNCTIONS = {
     "direct": (scan_direct, scan_full_plain),
@@ -414,6 +591,8 @@ FUNCTIONS = {
 
 
 def reset_launches() -> None:
-    """Set every lab launch count to 0."""
+    """Set every lab launch count to 0 (the min-scan steps' too)."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in MIN_LAUNCHES:
+        MIN_LAUNCHES[name] = 0

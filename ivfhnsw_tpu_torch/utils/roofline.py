@@ -7,7 +7,8 @@ Beside the bound, a scan record carries ``lookup_ms``: the least time the
 card's shared memory could take for the scan's LUT lookups if no two lanes
 of a warp ever met in a bank (each SM serves 32 four-byte words per clock).
 It is not part of ``bound_ms``; it says how far a lookup-bound kernel is
-from the rate of its own mechanism."""
+from the rate of its own mechanism. :func:`lookup_wavefronts` counts what
+the lookups of a schedule cost when lanes do meet in a bank."""
 
 from __future__ import annotations
 
@@ -107,3 +108,40 @@ def grouping_scan_bound(args, out: torch.Tensor, gran: int) -> dict:
             "lookup_ms": lookup_ms(n_kept * (M + 2) + (filled - n_kept),
                                    lut.device),
             "kept_lanes": n_kept, "filled_lanes": filled}
+
+
+def lookup_wavefronts(codes: torch.Tensor, norm_codes: torch.Tensor,
+                      start: torch.Tensor, length: torch.Tensor, gran: int,
+                      lanes: int = 32, chunk: int = 1 << 17) -> tuple:
+    """(lookups, wavefronts) of a scan's table lookups on a schedule, as
+    the scan kernels issue them: each warp instruction looks up one LUT row
+    (or the norm table) at the code bytes of ``lanes`` consecutive rows of a
+    slot (rows 32j .. 32j + 31 of its first min(len, gran), the last group
+    clipped), and word k of a row sits in bank k mod 32 (rows start on a
+    bank-0 boundary), so the instruction takes as many shared-memory
+    wavefronts as the most distinct words it asks of one bank. Lanes past
+    a slot's end ask for nothing (the min kernel's duplicates of the last
+    row ask for words already asked). ``chunk`` groups are counted at a
+    time."""
+    M = codes.shape[1]
+    ln = length.clamp(max=gran).long()
+    ng = (ln + lanes - 1) // lanes
+    m = ng > 0
+    st, L, G = start[m], ln[m], ng[m]
+    slot = torch.repeat_interleave(torch.arange(G.numel(),
+                                                device=start.device), G)
+    j = torch.arange(slot.numel(), device=start.device) - (
+        torch.cumsum(G, 0) - G)[slot]
+    g0 = st[slot] + j * lanes                     # each group's first row
+    gl = torch.clamp(L[slot] - j * lanes, max=lanes)
+    lane = torch.arange(lanes, device=start.device)
+    waves = 0
+    for a in range(0, g0.numel(), chunk):
+        b0, bl = g0[a:a + chunk], gl[a:a + chunk]
+        rows = b0[:, None] + torch.minimum(lane, bl[:, None] - 1)
+        tab = torch.cat([codes[rows], norm_codes[rows][..., None]], 2)
+        present = torch.zeros((rows.shape[0], M + 1, 256), dtype=torch.bool,
+                              device=start.device)
+        present.scatter_(2, tab.transpose(1, 2).long(), True)
+        waves += int(present.view(-1, M + 1, 8, 32).sum(2).amax(-1).sum())
+    return int(gl.sum()) * (M + 1), waves
