@@ -60,6 +60,17 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    floor they set; each kernel's SASS instructions per warp and code from
    cuobjdump; the lab's min-step launch counts reset before and required
    to grow; [mprobe] lines, K3/K4 records gain "mprobe";
+6d. wprobe (tools/wide_probe.py): on the same schedule at both widths,
+   over the real store and the conflict-free one, the write floor (one
+   fill_ of a tensor of the wide output's shape), the wide kernel's
+   design steps (csrc/wide_scan.cuh through scan_lab.py's WIDE_STEPS: the
+   first port, its split into stores only, no output, lookups only and
+   code reads only, one switch a step to the two production settings,
+   and the warp setting's split) and the production kernel, each torch.equal to its plain
+   version (a full step also to production) and timed against the first
+   port in turns, each kernel's SASS instructions per warp and code; the
+   lab's wide-step launch counts reset before and required to grow;
+   [wprobe] lines, K1/K2 records gain "wprobe";
 7. determinism: k-means at the primary point (200k learn rows, nc=4096,
    15 iterations) twice from one seed gives the same centroids, bit for bit;
 8. the Grouping+Pruning+OPQ main path at the flagship point (the JAX
@@ -275,7 +286,9 @@ Every min-kernel check on a path's schedule (phases 6, 17-23, s4full)
 also times K3/K4 against the first port in turns (10 pairs, and in how
 many of them it was the faster; phases 17 and 18a also the min steps of
 MIN_RIVALS, each torch.equal to production) and counts the lookups' bank
-conflicts (lookup_conflict_ms).
+conflicts (lookup_conflict_ms); every wide-kernel check there (and in
+phases 5 and 16) holds K1/K2 torch.equal to their first port
+(direct_wide_kernel) and times them against it in turns (10 pairs).
 
 Every kernel record carries bound_ms, the least time the card could take
 for the call (ivfhnsw_tpu_torch/utils/roofline.py): the larger of its bytes
@@ -436,37 +449,42 @@ def phase_kernels_vs_plain(device, nb: int) -> None:
 MIN_RIVALS = ("dp4a_tma_b8", "dp4a_pf_b6")
 
 
-def first_port_turns(args, rounds: int = 5, rivals=()) -> dict:
-    """The production min kernel against the first port
-    (``scan_lab.scan_min_step`` "first_port", ``direct_min_kernel``) on
-    ``args`` (the scan wrappers' arguments, gran last), timed in turns
-    (A B B A, ``rounds`` times, CUDA events): both medians, their ratio
-    and in how many of the 2 * ``rounds`` pairs it was the faster; the
-    same under "rivals" for each step named in ``rivals``, each first held
-    torch.equal to production."""
+def first_port_turns(args, rounds: int = 5, rivals=(),
+                     wide: bool = False) -> dict:
+    """The production min kernel (with ``wide`` the wide kernel) against
+    its first port (``scan_lab.scan_min_step`` / ``scan_wide_step``
+    "first_port": ``direct_min_kernel`` / ``direct_wide_kernel``) on
+    ``args`` (the scan wrappers' arguments, gran last), the first port and
+    each step named in ``rivals`` first held torch.equal to production,
+    then timed in turns (A B B A, ``rounds`` times, CUDA events): both
+    medians, their ratio and in how many of the 2 * ``rounds`` pairs
+    production was the faster; the same under "rivals" for each rival."""
     import torch
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
     from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
     from ivfhnsw_tpu_torch.tools.min_probe import in_turns, wins
-    first = sl.MIN_STEPS["first_port"]
+    prod_fn = tk.adc_scan_slots if wide else tk.adc_scan_slots_min
+    table, run_step = ((sl.WIDE_STEPS, sl.scan_wide_step) if wide
+                       else (sl.MIN_STEPS, sl.scan_min_step))
 
     def step(name):
-        return lambda: sl.scan_min_step(*args[:7], args[7],
-                                        sl.MIN_STEPS[name])
-    new, old, ta, tb = in_turns(lambda: tk.adc_scan_slots_min(*args),
-                                step(first.name), device_ms, rounds)
+        return lambda: run_step(*args[:7], args[7], table[name])
+    prod = prod_fn(*args)
+    for name in ("first_port", *rivals):
+        if not torch.equal(step(name)(), prod):
+            raise AssertionError(f"{'wide' if wide else 'min'} step {name}: "
+                                 "not torch.equal to production")
+    del prod
+    new, old, ta, tb = in_turns(lambda: prod_fn(*args), step("first_port"),
+                                device_ms, rounds)
     out = {"in_turns_ms": new, "first_port_ms": old,
            "over_first_port": new / old, "wins": wins(ta, tb),
            "pairs": len(ta)}
     if rivals:
-        prod = tk.adc_scan_slots_min(*args)
         out["rivals"] = {}
         for name in rivals:
-            if not torch.equal(step(name)(), prod):
-                raise AssertionError(f"min step {name}: not torch.equal to "
-                                     "the production min kernel")
-            m, f, ta, tb = in_turns(step(name), step(first.name), device_ms,
-                                    rounds)
+            m, f, ta, tb = in_turns(step(name), step("first_port"),
+                                    device_ms, rounds)
             out["rivals"][name] = {"ms": m, "first_port_ms": f,
                                    "over_first_port": m / f,
                                    "wins": wins(ta, tb), "pairs": len(ta)}
@@ -482,6 +500,13 @@ def turns_text(r: dict) -> str:
                 f"; step {n} {v['ms']:.4f} ms: {v['over_first_port']:.3f}x, "
                 f"faster in {v['wins']} of {v['pairs']}"
                 for n, v in r.get("rivals", {}).items()))
+
+
+# Wide-scan steps (scan_lab.WIDE_STEPS) that phases 17 and 18a time against
+# the first port beside production, on stores larger than L2 (dense and
+# sparse schedules): the first port's stores as production had them
+# before this design, and the two layouts production takes by slot width.
+WIDE_RIVALS = ("stream", "warp", "dp4a")
 
 
 def check_min_kernel(args, wide, what: str) -> None:
@@ -751,6 +776,8 @@ def main(argv: list) -> int:
     from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
     for name in sl.VARIANTS:
         sl._entry(name)
+    sl._mstep_entry()
+    sl._wstep_entry()
     from ivfhnsw_tpu_torch.ops.cuda import assign_min as am
     am._kernel()
     print(f"[build] {sos} in {time.perf_counter() - t0:.2f}s", flush=True)
@@ -945,10 +972,12 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
         valid = int(length.sum())
         nbytes = (valid * (st.code_m + 1) + dists.numel() * 4
                   + B * (st.code_m + 1) * 1024)
+        wturns = first_port_turns(args, wide=True)
         print(f"[kernel] main-path gran={gran} B={B} slots={nslots} "
               f"lane fill {valid / dists.numel():.3f}: kernel {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s of codes+output+LUT), plain "
-              f"{plain_ms:.4f} ms, max_abs_err {err!r}", flush=True)
+              f"{plain_ms:.4f} ms, max_abs_err {err!r}; "
+              f"{turns_text(wturns)}", flush=True)
         print(f"[layers] gran={gran} B={B} ms " + json.dumps(
             {k: round(v, 4) for k, v in layers.items()}), flush=True)
         kernels.append({"name": f"adc_scan_slots_gran{gran}", "route": "cuda",
@@ -957,7 +986,7 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
                         "ms": ms, "plain_ms": plain_ms,
                         **scan_bound(args, dists.numel(), st.code_m + 1,
                                      st.code_m + 1),
-                        "library_ms": None})
+                        "library_ms": None, **wturns})
     # End to end, engine "fused": each slot width at batch 1024 and 8192
     # (the default), in turns (A B C D D C B A), after phase 4's runs.
     index.engine = "fused"
@@ -992,6 +1021,11 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
     kernels += run_min_probe(device, index, ds.queries, params, kernels,
                              ("real", "free"), "[mprobe]", "mprobe")
     clock.mark("6c")
+
+    # 6d. the wide kernel taken apart, its design steps against its first
+    # port
+    kernels += run_wide_probe(device, index, ds.queries, params, kernels)
+    clock.mark("6d")
 
     # 7. determinism of k-means at the primary point
     phase_determinism(ds, p, device)
@@ -1325,6 +1359,67 @@ def run_min_probe(device, index, queries, params, kernels: list, stores,
                         "bound_by": r["bound_by"],
                         "lookup_ms": r["lookup_ms"], "library_ms": None,
                         "mode": sl.MIN_STEPS[name].mode,
+                        "first_port_ms": r.get("first_port_ms"),
+                        "over_first_port": r.get("over_first_port")})
+    return out
+
+
+def run_wide_probe(device, index, queries, params, kernels: list,
+                   stores=("real", "free"), tag: str = "[wprobe]",
+                   key: str = "wprobe", steps=None) -> list:
+    """Phase 6d: tools/wide_probe.py on ``index``'s schedule for one
+    8192-query batch at both slot widths over ``stores``: the ``fill_``
+    floor, each step of ``steps`` (default wide_probe.SMOKE_STEPS: every
+    step of scan_lab.WIDE_STEPS)
+    and the production wide kernel torch.equal to its plain version and
+    timed against the first port in turns (2 pairs; tools/wide_probe.py
+    takes 10 and more), each kernel's SASS instructions per warp and code;
+    the lab's wide-step launch counts reset before and required to grow.
+    Production's time in turns, the first port's, the split and the floor
+    go under ``key`` in the K1/K2 records of ``kernels``. Returns one kernel
+    record per step and width on the real store."""
+    from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
+    from ivfhnsw_tpu_torch.tools import wide_probe
+    steps = tuple(steps or wide_probe.SMOKE_STEPS)
+    for n in sl.WIDE_LAUNCHES:
+        sl.WIDE_LAUNCHES[n] = 0
+    recs = wide_probe.run(index, queries, params, device, batch=SEARCH_BATCH,
+                          steps=steps, stores=stores, rounds=1, tag=tag,
+                          log=lambda m: print(m, flush=True))
+    idle = [n for n in steps if sl.WIDE_LAUNCHES[n] <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: wide steps never launched: {idle}")
+    sass = {r["name"]: r["sass"] for r in recs if "sass" in r}
+    out = []
+    for gran in (256, 1024):
+        by = {(r["name"], r.get("store")): r for r in recs
+              if r.get("gran") == gran}
+        prod = by[(wide_probe.PRODUCTION, "real")]
+        rec = next(k for k in kernels
+                   if k["name"] == f"adc_scan_slots_gran{gran}")
+        rec[key] = {
+            "ms": prod["ms"], "first_port_ms": prod["first_port_ms"],
+            "over_first_port": prod["over_first_port"],
+            "fill_ms": by[(wide_probe.FILL, None)]["ms"],
+            "split": {f"{n}/{st}": {"ms": by[(n, st)]["ms"],
+                                    "over_first_port":
+                                        by[(n, st)].get("over_first_port")}
+                      for n, st in wide_probe.SPLIT if (n, st) in by},
+            "step": sl.wide_production_step(gran).name,
+            "sass_per_code": {n: (sass[n] or {}).get("per_code")
+                              for n in (sl.wide_production_step(gran).name,
+                                        wide_probe.BASELINE) if n in sass}}
+        for name in steps:
+            r = by[(name, "real")]
+            out.append({"name": f"lab_wstep_{name}_gran{gran}",
+                        "route": "cuda", "source": LAB_SOURCE,
+                        "replaces": KERNELS[gran],
+                        "launches": sl.WIDE_LAUNCHES[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "lookup_ms": r["lookup_ms"], "library_ms": None,
+                        "mode": sl.WIDE_STEPS[name].mode,
                         "first_port_ms": r.get("first_port_ms"),
                         "over_first_port": r.get("over_first_port")})
     return out
@@ -2335,6 +2430,8 @@ def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
         fill = int(length.sum()) / (B * length.shape[1] * gran)
         ms = device_ms(lambda: tk.adc_scan_slots(*args))
         ms_min = device_ms(lambda: tk.adc_scan_slots_min(*args))
+        del wide
+        wturns = first_port_turns(args, wide=True)
         gargs = (*g.grouping_scan_inputs(q, gp), gran)
         gout = tg.grouping_scan_slots(*gargs)
         if not torch.equal(gout, tg.grouping_scan_slots_plain(*gargs)):
@@ -2350,6 +2447,10 @@ def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
                 (f"grouping_scan_slots_gran{gran}", gms, gfill)):
             rec = next(k for k in kernels if k["name"] == name)
             rec["siftlike_ms"], rec["siftlike_lane_fill"] = t_ms, lane_fill
+            if name.startswith("adc_scan_slots_gran"):
+                rec["siftlike_turns"] = wturns
+        print(f"[siftlike] wide kernel at gran {gran}: "
+              f"{turns_text(wturns)}", flush=True)
         print(f"[siftlike] kernels at gran {gran}, B={B}: wide {ms:.4f} ms, "
               f"min {ms_min:.4f} ms, lane fill {fill:.3f} over "
               f"{length.shape[1]} slots (max_abs_err {err!r}, min kernel "
@@ -2763,8 +2864,9 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
                  **scan_bound(args, got.numel(), st.code_m + 1,
                               st.code_m + (2 if "min" in name else 1))}
             del ref
-            if "min" in name:
-                r.update(first_port_turns(args, rivals=MIN_RIVALS))
+            wide = "min" not in name
+            r.update(first_port_turns(
+                args, rivals=WIDE_RIVALS if wide else MIN_RIVALS, wide=wide))
             for krec in kernels:
                 if krec["name"] == name:
                     krec["scale2"] = r
@@ -2772,7 +2874,7 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
                   f"(B={B}, {length.shape[1]} slots, lane fill {fill:.3f}): "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
                   f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
-                  + (f"; {turns_text(r)}" if "min" in name else ""),
+                  + f"; {turns_text(r)}",
                   flush=True)
         del args, wide, mins
     index.scan_topk = "auto"
@@ -3011,7 +3113,7 @@ def run_sharded_scale2(device, s2: dict, pl: PhaseLaunches,
         args = (*sh.scan_inputs(q_np, prm, rank), gran)
         check_scan_kernels(args, kernels, "sharded", "[sharded]",
                            f"shard {rank}'s schedule", {"shard": rank},
-                           rivals=MIN_RIVALS)
+                           rivals=MIN_RIVALS, wide_rivals=WIDE_RIVALS)
         del args
     del sh
     if device.type == "cuda":
@@ -3472,12 +3574,13 @@ def check_shard(info: dict, S: int, gran: int, k: int, P: int, mc: int,
 
 
 def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
-                       what: str, extra: dict, rivals=()) -> None:
+                       what: str, extra: dict, rivals=(),
+                       wide_rivals=()) -> None:
     """K1 and K3 (gran 256) or K2 and K4 (gran 1024) on the schedule
     ``args`` (the scan wrappers' arguments, gran last): each torch.equal to
-    its plain version, then both timed, with the bound beside them, and K3
-    / K4 against the first port in turns (with the min steps ``rivals``);
-    the record (``extra`` and those numbers) goes under ``key`` in the
+    its plain version, then both timed, with the bound beside them, and
+    each against its first port in turns (K3 / K4 with the min steps
+    ``rivals``, K1 / K2 with the wide steps ``wide_rivals``); the record (``extra`` and those numbers) goes under ``key`` in the
     kernel's entry of ``kernels`` and on a ``tag`` line."""
     import torch
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
@@ -3502,17 +3605,18 @@ def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
                                    warmup=1),
              **scan_bound(args, got.numel(), code_m + 1,
                           code_m + (2 if "min" in name else 1))}
-        turns = ""
-        if "min" in name:
-            r.update(first_port_turns(args, rivals=rivals))
+        wide = "min" not in name
+        r.update(first_port_turns(args, rivals=wide_rivals if wide else rivals,
+                                  wide=wide))
+        turns = f"; {turns_text(r)}"
+        if not wide:
             looks, waves = lookup_wavefronts(args[2], args[3], args[4],
                                              length, gran)
             r["lookup_conflict_ms"] = lookup_ms(32 * waves, args[0].device)
-            turns = (f"; {turns_text(r)}; "
-                     f"{32 * waves / max(looks, 1):.3f} wavefronts a lookup, "
-                     "conflict floor "
-                     + ("n/a" if r["lookup_conflict_ms"] is None
-                        else f"{r['lookup_conflict_ms']:.4f} ms"))
+            turns += (f"; {32 * waves / max(looks, 1):.3f} wavefronts a "
+                      "lookup, conflict floor "
+                      + ("n/a" if r["lookup_conflict_ms"] is None
+                         else f"{r['lookup_conflict_ms']:.4f} ms"))
         for krec in kernels:
             if krec["name"] == name:
                 krec[key] = r

@@ -1,7 +1,8 @@
 // Fused ADC posting-list scans for Hopper (sm_90a), bound to Python with
 // ctypes (ivfhnsw_tpu_torch/ops/cuda/adc_scan.py::adc_scan_slots and
 // ::adc_scan_slots_min). Two kernels over one per-lane sum, added in one
-// order (the min kernel's body is min_scan.cuh's).
+// order (their bodies are wide_scan.cuh's and min_scan.cuh's, the lookup
+// shared).
 //
 // 1. The wide scan replaces the two TPU scan kernels of the JAX package,
 //    together with the mask-and-bias pass they leave to XLA
@@ -46,11 +47,21 @@
 // (17 B at M=16) from L2 or device memory and does M+1 random 4-byte lookups
 // in the shared-memory LUT. All lanes of a warp read one LUT row at 32
 // codes, and a warp instruction takes one shared-memory wavefront for each
-// distinct word in its fullest bank (bank = code mod 32).
+// distinct word in its fullest bank (bank = code mod 32). Both stage the
+// query's 17 KB of tables once (B * 17 KB read, 143 MB at B=8192).
 //   wide: it also writes 4 B for EVERY lane of the padded [B, nslots*gran]
 //         output, empty and tail lanes included; that output is its byte
-//         bound, and it keeps the first port's lookup (shift, mask, the
-//         compiler's multiply-add of the table's base, load, add).
+//         bound (663 MB of 838 at the main path's 256-code slots, B=8192).
+//         Measured with tools/wide_probe.py on the main path's schedule
+//         (NVIDIA H100 80GB HBM3 at 700 W; PERF.md), the first port's
+//         time at 256 was set by its structure, all 256 threads stepping
+//         through one slot at a time (len -> start -> code row -> 17
+//         lookups -> store, then the next slot): its loop without the
+//         output took 0.89x of it, its stores alone 0.63x (3x the card's
+//         fill_ of the same bytes), its conflict-free store 0.98x. At 1024
+//         the output sets it: the stores alone take 0.87x, the fill_ floor
+//         0.6x. With a warp a slot, the loop without the output takes 0.74x
+//         of the first port at 256 and the kernel 0.82x.
 //   min:  it writes 4 B per slot, so its byte bound (the LUTs and the
 //         touched store rows) is a tenth of its time. Measured with
 //         tools/min_probe.py on the main path's schedule (B=8192; NVIDIA
@@ -71,14 +82,28 @@
 // query's M x 256 LUT and the norm table in shared memory once (17 KB at
 // M=16), so LUT bytes come from device memory once per query; reloading
 // them per 256-code slot would read ~4x more LUT bytes than code bytes. At
-// M=16 a lane's code is one 16-byte load and every LUT row's offset is an
-// immediate. Row addresses are 64-bit (start*M passes 2^31 at ~134M codes).
-//   wide: threads own lanes tid, tid+blockDim, ..., so code reads and output
-//         stores are coalesced. The output streams through L2 once
-//         (st.global.cs) and should not evict the code store; a run of empty
-//         slots (half of a schedule's slots) is one fill of 16-byte +inf
-//         stores by all threads (fill_inf, scan_common.cuh). 8 blocks of 8
-//         warps per SM, 32 registers a thread.
+// M=16 a lane's code is one 16-byte load. Slot bases are 64-bit (start*M
+// passes 2^31 at ~134M codes), a lane's row a 32-bit offset from it.
+//   wide: wide_scan.cuh's body at two settings of its switches, chosen by
+//         slot width, each the one that won in turns against the first
+//         port at its width and lost on no schedule with a resolved
+//         reading. Below 1024 codes (step "warp"): each warp takes slots
+//         warp, warp+nwarps, ..., so eight slots' chains are in flight a
+//         block and a slot's len, start and bias are loaded once for its
+//         lanes, which stride the slot; 84 SASS instructions a warp and
+//         code against the first port's 92. At 1024 (step "dp4a"), where
+//         the output bounds the kernel, the first port's block a slot,
+//         whose threads write each slot's 4 KB together: the warp layout
+//         ran 1.01-1.03x of the first port there on schedules over stores
+//         larger than L2. Both: a lookup is min_scan.cuh's one IDP.4A; the
+//         tables arrive by TMA on an mbarrier; stores stream through L2
+//         once (st.global.cs); an empty slot is 16-byte +inf stores (a run
+//         of them, in the block layout); 32 registers, 8 blocks per SM as
+//         the first port. Four lanes a thread with 16-byte stores (82
+//         registers, 2 blocks an SM), bulk stores of shared-memory tiles,
+//         persistent blocks, empty slots filled while the tables arrive
+//         and 16-byte tail stores were no faster; the first port's body is
+//         scan_lab.cu's direct_wide_kernel.
 //   min:  min_scan.cuh's body at one setting of its switches, the one
 //         of its steps that was faster than the first port in turns at
 //         both widths on the main path and slower on no schedule measured:
@@ -103,88 +128,26 @@
 
 #include "min_scan.cuh"
 #include "scan_common.cuh"
+#include "wide_scan.cuh"
 
 namespace {
 
-using scan_common::fill_inf;
-
-constexpr int KSUB = 256;
-constexpr int THREADS = 256;
-
-// Stage the query's LUT and the norm table in shared memory.
-__device__ __forceinline__ void stage_tables(float* s_lut, float* s_norm,
-                                             const float* __restrict__ lut_b,
-                                             const float* __restrict__ norm_tab,
-                                             int M) {
-  for (int i = threadIdx.x; i < M * KSUB; i += blockDim.x) s_lut[i] = lut_b[i];
-  for (int i = threadIdx.x; i < KSUB; i += blockDim.x) s_norm[i] = norm_tab[i];
-  __syncthreads();
+// The production wide scan: wide_scan.cuh's body at the setting of its
+// switches that measured fastest at each slot width (tools/wide_probe.py,
+// PERF.md): a warp a slot below WARP_GRAN_BELOW codes (step "warp"), the
+// first port's block a slot at and above it (step "dp4a"), where the
+// output bounds the kernel. Both stream their stores and take one IDP.4A
+// a lookup and TMA staging.
+constexpr int WARP_GRAN_BELOW = 1024;
+__global__ void __launch_bounds__(wide_scan::THREADS, 8)
+adc_scan_slots_kernel_warp(wide_scan::Params p) {
+  wide_scan::body<min_scan::ADDR_DP4A, true, min_scan::STAGE_TMA,
+                  wide_scan::OUT_STREAM, wide_scan::FULL>(p, 0u);
 }
-
-// One lane's distance, summed as the plain versions sum it: bias, norm,
-// then m = 0..M-1. Both kernels call this, so their results agree bit for
-// bit.
-__device__ __forceinline__ float lane_sum(const float* s_lut,
-                                          const float* s_norm,
-                                          const uint8_t* __restrict__ codes,
-                                          const uint8_t* __restrict__ norm_codes,
-                                          int64_t r, float bs, int M,
-                                          int vec16) {
-  float acc = bs + s_norm[norm_codes[r]];
-  if (vec16) {
-    const uint4 c = *reinterpret_cast<const uint4*>(codes + r * 16);
-    const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        acc += s_lut[(q * 4 + t) * KSUB + ((w[q] >> (8 * t)) & 0xff)];
-      }
-    }
-  } else {
-    const uint8_t* c = codes + r * M;
-    for (int m = 0; m < M; ++m) acc += s_lut[m * KSUB + c[m]];
-  }
-  return acc;
-}
-
-__global__ void __launch_bounds__(THREADS)
-adc_scan_slots_kernel(const float* __restrict__ lut,           // [B, M, 256]
-                      const float* __restrict__ norm_tab,      // [256]
-                      const uint8_t* __restrict__ codes,       // [N, M]
-                      const uint8_t* __restrict__ norm_codes,  // [N]
-                      const int64_t* __restrict__ start,       // [B, S]
-                      const int32_t* __restrict__ len,         // [B, S]
-                      const float* __restrict__ bias,          // [B, S]
-                      float* __restrict__ out,                 // [B, S*gran]
-                      int nslots, int M, int gran, int vec16) {
-  extern __shared__ float smem[];
-  float* s_lut = smem;               // M * 256
-  float* s_norm = smem + M * KSUB;   // 256
-
-  const int64_t b = blockIdx.x;
-  stage_tables(s_lut, s_norm, lut + b * M * KSUB, norm_tab, M);
-
-  const int64_t sb = b * nslots;
-  float* out_b = out + sb * gran;
-  for (int s = 0; s < nslots; ++s) {
-    const int ln = len[sb + s];
-    float* o = out_b + static_cast<int64_t>(s) * gran;
-    if (ln <= 0) {  // this slot and the empty ones after it, in one fill
-      int e = s + 1;
-      while (e < nslots && len[sb + e] <= 0) ++e;
-      fill_inf(o, static_cast<int64_t>(e - s) * gran);
-      s = e - 1;
-      continue;
-    }
-    const int64_t st = start[sb + s];
-    const float bs = bias[sb + s];
-    for (int l = threadIdx.x; l < gran; l += blockDim.x) {
-      __stcs(o + l, l < ln ? lane_sum(s_lut, s_norm, codes, norm_codes,
-                                      st + l, bs, M, vec16)
-                           : INFINITY);
-    }
-  }
+__global__ void __launch_bounds__(wide_scan::THREADS, 8)
+adc_scan_slots_kernel_block(wide_scan::Params p) {
+  wide_scan::body<min_scan::ADDR_DP4A, false, min_scan::STAGE_TMA,
+                  wide_scan::OUT_STREAM, wide_scan::FULL>(p, 0u);
 }
 
 // The production min scan: min_scan.cuh's body at the setting of its
@@ -221,16 +184,24 @@ extern "C" int ivf_adc_scan_slots(const void* lut, const void* norm_tab,
                                   const void* bias, void* out, int B,
                                   int nslots, int M, int gran, void* stream) {
   if (B == 0 || nslots == 0 || gran == 0) return 0;
-  const size_t smem = static_cast<size_t>(M + 1) * KSUB * sizeof(float);
-  if (const int e = set_smem(adc_scan_slots_kernel, smem)) return e;
-  adc_scan_slots_kernel<<<B, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lut), static_cast<const float*>(norm_tab),
-      static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(norm_codes),
-      static_cast<const int64_t*>(start), static_cast<const int32_t*>(len),
-      static_cast<const float*>(bias), static_cast<float*>(out), nslots, M,
-      gran, use_vec16(M, codes));
+  auto* kernel = gran < WARP_GRAN_BELOW ? adc_scan_slots_kernel_warp
+                                        : adc_scan_slots_kernel_block;
+  const size_t smem = min_scan::smem_bytes(M);
+  if (const int e = set_smem(kernel, smem)) return e;
+  const wide_scan::Params p{static_cast<const float*>(lut),
+                            static_cast<const float*>(norm_tab),
+                            static_cast<const uint8_t*>(codes),
+                            static_cast<const uint8_t*>(norm_codes),
+                            static_cast<const int64_t*>(start),
+                            static_cast<const int32_t*>(len),
+                            static_cast<const float*>(bias),
+                            static_cast<float*>(out),
+                            nslots,
+                            M,
+                            gran,
+                            use_vec16(M, codes)};
+  kernel<<<B, wide_scan::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -127,7 +127,14 @@
 // tools/min_probe.py finds it in the library's SASS), beside step 0, the
 // first port's direct_min_kernel; see min_scan.cuh for the switches.
 //
-// Every entry point but ivf_lab_mstep has one signature: the seven inputs,
+// The wide-scan steps (ivf_lab_wstep, ops/cuda/scan_lab.py::WIDE_STEPS): the
+// design steps of the production wide kernel and the split of their time,
+// each an instantiation of wide_scan.cuh's body as an extern "C" kernel named
+// wstep_<step> (found by tools/wide_probe.py in the library's SASS), beside
+// step 0, the first port's direct_wide_kernel; see wide_scan.cuh for the
+// switches.
+//
+// Every entry point but ivf_lab_mstep and ivf_lab_wstep has one signature: the seven inputs,
 // the output, B, nslots, M, N (rows of the store), tile_row (COMPUTE_ONLY),
 // smem_floor (the launch takes at least this much dynamic shared memory, to
 // hold occupancy equal across variants), the stream, and info: when info
@@ -140,6 +147,7 @@
 #include <stdint.h>
 
 #include "min_scan.cuh"
+#include "wide_scan.cuh"
 
 namespace {
 
@@ -1156,5 +1164,138 @@ extern "C" int ivf_lab_mstep(int step, const void* lut, const void* norm_tab,
                                            smem, st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the wide-scan steps ------------------------------------------------------
+
+namespace {
+
+// What ivf_lab_wstep needs to know of a step beyond its kernel.
+struct WideStepInfo {
+  int mode;
+};
+
+}  // namespace
+
+// wstep_<NAME>: wide_scan.cuh's body at one setting of its switches, under
+// __launch_bounds__(THREADS, MINB); zero is 0 (COMPUTE's perturbation).
+#define WSTEP(NAME, MINB, ADDR, WARP, STAGE, OUT, MODE)                    \
+  extern "C" __global__ void __launch_bounds__(wide_scan::THREADS, MINB)  \
+      wstep_##NAME(wide_scan::Params p, uint32_t zero) {                  \
+    wide_scan::body<min_scan::ADDR_##ADDR, WARP, min_scan::STAGE_##STAGE, \
+                    wide_scan::OUT_##OUT, wide_scan::MODE>(p, zero);      \
+  }                                                                       \
+  constexpr WideStepInfo winfo_##NAME = {wide_scan::MODE};
+// Step ids as in ops/cuda/scan_lab.py::WIDE_STEPS (0 is direct_wide_kernel).
+// Only the steps that are kept are built (the way to production, its
+// split, its rivals); PERF.md holds the readings of the others. The first
+// port's structure at its 8 blocks an SM: its split, then its stores as
+// production had them before the redesign (streaming, one fill per run of
+// empty slots), then one IDP.4A a lookup with TMA staging (production at
+// 1024 codes).
+WSTEP(stores, 8, SHIFT, false, LOOP, PLAIN, STORES)     // 1
+WSTEP(noout, 8, SHIFT, false, LOOP, PLAIN, NOOUT)       // 2
+WSTEP(comp, 8, SHIFT, false, LOOP, PLAIN, COMPUTE)      // 3
+WSTEP(loads, 8, SHIFT, false, LOOP, PLAIN, LOADS)       // 4
+WSTEP(stream, 8, SHIFT, false, LOOP, STREAM, FULL)      // 5
+WSTEP(dp4a, 8, DP4A, false, TMA, STREAM, FULL)          // 6
+// A warp a slot: the structure alone, then with the new lookup
+// (production below 1024 codes), and its split.
+WSTEP(warp_shift, 8, SHIFT, true, LOOP, STREAM, FULL)   // 7
+WSTEP(warp, 8, DP4A, true, TMA, STREAM, FULL)           // 8
+WSTEP(warp_stores, 8, DP4A, true, TMA, STREAM, STORES)  // 9
+WSTEP(warp_noout, 8, DP4A, true, TMA, STREAM, NOOUT)    // 10
+WSTEP(warp_comp, 8, DP4A, true, TMA, STREAM, COMPUTE)   // 11
+WSTEP(warp_loads, 8, DP4A, true, TMA, STREAM, LOADS)    // 12
+#undef WSTEP
+
+// Wide-scan step `step` on the production scan's inputs into out ([B,
+// nslots*gran], or [B, THREADS] for a NOOUT step) at slot width gran. With
+// info not null: writes {blocks per SM, dynamic shared-memory bytes,
+// registers a thread} there and launches nothing. Returns 0, the CUDA error
+// of the launch, or cudaErrorInvalidValue for an unknown step or for a
+// COMPUTE / LOADS step without 16-byte code rows.
+extern "C" int ivf_lab_wstep(int step, const void* lut, const void* norm_tab,
+                             const void* codes, const void* norm_codes,
+                             const void* start, const void* len,
+                             const void* bias, void* out, int B, int nslots,
+                             int M, int gran, void* stream, int* info) {
+  const int vec16 =
+      (M == 16) && ((reinterpret_cast<uintptr_t>(codes) & 15u) == 0);
+  const void* fn = nullptr;
+  WideStepInfo si{wide_scan::FULL};
+  switch (step) {
+#define WCASE(ID, NAME)                               \
+  case ID:                                            \
+    fn = reinterpret_cast<const void*>(wstep_##NAME); \
+    si = winfo_##NAME;                                \
+    break;
+    case 0: fn = reinterpret_cast<const void*>(direct_wide_kernel); break;
+    WCASE(1, stores)
+    WCASE(2, noout)
+    WCASE(3, comp)
+    WCASE(4, loads)
+    WCASE(5, stream)
+    WCASE(6, dp4a)
+    WCASE(7, warp_shift)
+    WCASE(8, warp)
+    WCASE(9, warp_stores)
+    WCASE(10, warp_noout)
+    WCASE(11, warp_comp)
+    WCASE(12, warp_loads)
+#undef WCASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool partial =
+      si.mode == wide_scan::COMPUTE || si.mode == wide_scan::LOADS;
+  if (info == nullptr && partial && !vec16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      step == 0 ? static_cast<size_t>(M + 1) * KSUB * sizeof(float)
+                : min_scan::smem_bytes(M);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (info != nullptr) {
+    int blocks = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, THREADS, smem);
+    cudaFuncAttributes attr;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+    info[0] = blocks;
+    info[1] = static_cast<int>(smem);
+    info[2] = e == cudaSuccess ? attr.numRegs : 0;
+    return static_cast<int>(e);
+  }
+  if (B == 0 || nslots == 0 || gran == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (step == 0) {
+    const Args a = make_args(lut, norm_tab, codes, norm_codes, start, len,
+                             bias, out, nslots, M, 0, 0);
+    direct_wide_kernel<<<B, THREADS, smem, st>>>(a, gran, vec16);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const wide_scan::Params p{static_cast<const float*>(lut),
+                            static_cast<const float*>(norm_tab),
+                            static_cast<const uint8_t*>(codes),
+                            static_cast<const uint8_t*>(norm_codes),
+                            static_cast<const int64_t*>(start),
+                            static_cast<const int32_t*>(len),
+                            static_cast<const float*>(bias),
+                            static_cast<float*>(out),
+                            nslots,
+                            M,
+                            gran,
+                            vec16};
+  uint32_t zero = 0u;
+  void* kargs[] = {const_cast<wide_scan::Params*>(&p), &zero};
+  const cudaError_t e = cudaLaunchKernel(fn, dim3(B), dim3(THREADS), kargs,
+                                         smem, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

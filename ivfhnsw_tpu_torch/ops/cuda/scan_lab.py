@@ -36,6 +36,14 @@ Beside them, the min-scan steps (:data:`MIN_STEPS`, :func:`scan_min_step`,
 count its machine instructions; ``comp*`` and ``loads*`` take a design's
 time apart (no code loads in the lane loop; no lookups).
 
+The wide-scan steps (:data:`WIDE_STEPS`, :func:`scan_wide_step`,
+:data:`WIDE_LAUNCHES`) do the same for the production wide kernel (K1/K2,
+``csrc/wide_scan.cuh``) from its first port (step ``first_port``,
+``direct_wide_kernel``) on; ``stores``, ``noout``, ``comp`` and ``loads``
+(and their ``warp_*`` twins, the production setting's) take a design's
+time apart: its stores alone, its loop without the output, its lookups
+alone, its code reads alone.
+
 They take the production scan's inputs (``ops/cuda/adc_scan.py``: LUTs,
 norm table, the flat store, the slot schedule) and a :class:`Variant` of
 :data:`VARIANTS`, which names the compiled instantiation. The full-function
@@ -476,6 +484,40 @@ MIN_LAUNCHES = {name: 0 for name in MIN_STEPS}
 PRODUCTION_STEP = "dp4a1_tma_b8"
 
 
+def _check_step_args(fn: str, args: tuple, gran: int):
+    """Raise unless ``args`` (the production scan's seven inputs) and
+    ``gran`` are what step wrapper ``fn``'s kernels take; returns (B, S,
+    N, M, device)."""
+    lut, norm_tab, codes, norm_codes, start, length, bias = args
+    B, S = start.shape
+    N, M = codes.shape
+    dev = lut.device
+    for name, t, dtype, shape in (
+            ("lut", lut, torch.float32, (B, M, KSUB)),
+            ("norm_tab", norm_tab, torch.float32, (KSUB,)),
+            ("codes", codes, torch.uint8, (N, M)),
+            ("norm_codes", norm_codes, torch.uint8, (N,)),
+            ("start", start, torch.int64, (B, S)),
+            ("length", length, torch.int32, (B, S)),
+            ("bias", bias, torch.float32, (B, S))):
+        _check(name, t, dtype, shape, dev, fn)
+    if gran <= 0 or max(B, S, M, gran) >= 2 ** 31 or M == 0:
+        raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M} "
+                         f"gran={gran}")
+    return B, S, N, M, dev
+
+
+def _row_xor(codes: torch.Tensor, norm_codes: torch.Tensor) -> torch.Tensor:
+    """The LOADS modes' value of every store row (M = 16): (w0 ^ w1 ^ w2 ^
+    w3 ^ norm_codes[r]) & 0xffffff, w_q the little-endian word of code
+    bytes 4q..4q+3, int64 [N]."""
+    b = codes.long()
+    words = [b[:, 4 * q] | b[:, 4 * q + 1] << 8 | b[:, 4 * q + 2] << 16
+             | b[:, 4 * q + 3] << 24 for q in range(4)]
+    return (words[0] ^ words[1] ^ words[2] ^ words[3] ^ norm_codes.long()
+            ) & 0xFFFFFF
+
+
 def min_step_plain(lut, norm_tab, codes, norm_codes, start, length, bias,
                    gran: int, step: MinStep) -> torch.Tensor:
     """Plain version of :func:`scan_min_step`, [B, S] f32: for a "full"
@@ -498,12 +540,8 @@ def min_step_plain(lut, norm_tab, codes, norm_codes, start, length, bias,
     if codes.shape[0] == 0:
         return torch.full((B, S), float("inf"), device=start.device)
     row, valid = _slot_rows(start, length.clamp(max=gran), gran)
-    b = codes.long()
-    words = [b[:, 4 * q] | b[:, 4 * q + 1] << 8 | b[:, 4 * q + 2] << 16
-             | b[:, 4 * q + 3] << 24 for q in range(4)]
-    x = (words[0] ^ words[1] ^ words[2] ^ words[3] ^ norm_codes.long()
-         ) & 0xFFFFFF
-    val = torch.where(valid, x[row].float(), float("inf"))
+    val = torch.where(valid, _row_xor(codes, norm_codes)[row].float(),
+                      float("inf"))
     return val.view(B, S, gran).amin(dim=-1)
 
 
@@ -542,24 +580,10 @@ def scan_min_step(lut, norm_tab, codes, norm_codes, start, length, bias,
     fn = "scan_min_step"
     if MIN_STEPS.get(step.name) != step:
         raise ValueError(f"{fn}: {step} is not one of MIN_STEPS")
-    B, S = start.shape
-    N, M = codes.shape
-    dev = lut.device
-    for name, t, dtype, shape in (
-            ("lut", lut, torch.float32, (B, M, KSUB)),
-            ("norm_tab", norm_tab, torch.float32, (KSUB,)),
-            ("codes", codes, torch.uint8, (N, M)),
-            ("norm_codes", norm_codes, torch.uint8, (N,)),
-            ("start", start, torch.int64, (B, S)),
-            ("length", length, torch.int32, (B, S)),
-            ("bias", bias, torch.float32, (B, S))):
-        _check(name, t, dtype, shape, dev, fn)
-    if gran <= 0 or max(B, S, M, gran) >= 2 ** 31 or M == 0:
-        raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M} "
-                         f"gran={gran}")
+    args = (lut, norm_tab, codes, norm_codes, start, length, bias)
+    B, S, N, M, dev = _check_step_args(fn, args, gran)
     if step.mode != "full" and M != 16:
         raise ValueError(f"{fn}: step {step.name} needs M = 16, got {M}")
-    args = (lut, norm_tab, codes, norm_codes, start, length, bias)
     if dev.type == "cpu":
         return min_step_plain(*args, gran, step)
     if dev.type != "cuda":
@@ -579,6 +603,229 @@ def scan_min_step(lut, norm_tab, codes, norm_codes, start, length, bias,
     return out
 
 
+# ---- the wide-scan steps -----------------------------------------------------
+
+WIDE_THREADS = 256     # threads a block of csrc/wide_scan.cuh
+WIDE_WARPS = WIDE_THREADS // 32
+SM_SMEM = 233_472      # shared memory of an H100 SM, bytes
+SM_BLOCK_RESERVED = 1024   # shared memory the card keeps for each block
+SM_THREADS = 2048      # threads an H100 SM holds
+
+
+@dataclass(frozen=True)
+class WideStep:
+    """One step of ``csrc/scan_lab.cu::ivf_lab_wstep``: its id there, the
+    kernel's name in the library (``direct_wide_kernel`` or
+    ``wstep_<name>``), the switches of ``csrc/wide_scan.cuh::body`` it sets
+    (``addr`` "shift" / "dp4a", ``layout`` "block" (the first port's: all
+    threads on one slot at a time) / "warp" (a warp a slot), ``stage``
+    "loop" / "tma", ``out`` "plain" / "stream", ``min_blocks`` of its
+    launch bounds) and ``mode``: "full" (the production function), "stores"
+    (bias in each valid lane), "noout" (each thread's minimum, [B, 256]),
+    "compute" (each lane looks up a constant store row) or "loads" (the row
+    words' xor), all defined by :func:`wide_step_plain`."""
+
+    name: str
+    step: int
+    addr: str = "shift"
+    layout: str = "block"
+    stage: str = "loop"
+    out: str = "plain"
+    mode: str = "full"
+    min_blocks: int = 1
+
+    @property
+    def kernel(self) -> str:
+        return ("direct_wide_kernel" if self.step == 0
+                else f"wstep_{self.name}")
+
+
+# Step 0 is the first port; 1-4 split its time (stores only, no output,
+# lookups only, code reads only) at its 8 blocks an SM; 5 is its stores as
+# production had them before the redesign, 6 adds one IDP.4A a lookup and
+# TMA staging (production at 1024 codes); 7-8 give each warp its own
+# slots (the structure alone, then with the new lookup: production below
+# 1024 codes); 9-12 split step 8. PERF.md holds the readings of the steps
+# no longer built (four lanes a thread, bulk stores of shared-memory
+# tiles, persistent blocks, early fills of empty slots, 16-byte tail
+# stores, and combinations of them).
+_B8 = dict(min_blocks=8)
+_WARP = dict(addr="dp4a", stage="tma", out="stream", layout="warp",
+             min_blocks=8)
+WIDE_STEPS = {s.name: s for s in (
+    WideStep("first_port", 0),
+    WideStep("stores", 1, mode="stores", **_B8),
+    WideStep("noout", 2, mode="noout", **_B8),
+    WideStep("comp", 3, mode="compute", **_B8),
+    WideStep("loads", 4, mode="loads", **_B8),
+    WideStep("stream", 5, out="stream", **_B8),
+    WideStep("dp4a", 6, addr="dp4a", stage="tma", out="stream", **_B8),
+    WideStep("warp_shift", 7, layout="warp", out="stream", **_B8),
+    WideStep("warp", 8, **_WARP),
+    WideStep("warp_stores", 9, **_WARP, mode="stores"),
+    WideStep("warp_noout", 10, **_WARP, mode="noout"),
+    WideStep("warp_comp", 11, **_WARP, mode="compute"),
+    WideStep("warp_loads", 12, **_WARP, mode="loads"),
+)}
+WIDE_LAUNCHES = {name: 0 for name in WIDE_STEPS}
+# The steps whose switches csrc/adc_scan.cu's two production wide kernels
+# instantiate, by kernel: a warp a slot below WARP_GRAN_BELOW codes, the
+# block a slot at and above it (tests/test_torch_wide_kernel.py holds them
+# together).
+WARP_GRAN_BELOW = 1024
+WIDE_PRODUCTION = {"adc_scan_slots_kernel_warp": "warp",
+                   "adc_scan_slots_kernel_block": "dp4a"}
+
+
+def wide_production_step(gran: int) -> WideStep:
+    """The step that ``adc_scan_slots`` runs at slot width ``gran``."""
+    return WIDE_STEPS["warp" if gran < WARP_GRAN_BELOW else "dp4a"]
+
+
+def wide_smem_bytes(step: WideStep, M: int) -> int:
+    """Dynamic shared memory of ``step``'s launch at ``M`` subquantizers:
+    the tables and, but for the first port, min_scan.cuh's mbarrier."""
+    return (M + 1) * KSUB * 4 + (16 if step.step else 0)
+
+
+def smem_blocks_per_sm(smem: int) -> int:
+    """Blocks of 256 threads an H100 SM holds at ``smem`` bytes of dynamic
+    shared memory each, by shared memory and threads alone (registers can
+    hold it lower)."""
+    return min(SM_THREADS // WIDE_THREADS,
+               SM_SMEM // (smem + SM_BLOCK_RESERVED))
+
+
+def wide_owner(step: WideStep, S: int, gran: int,
+               device="cpu") -> torch.Tensor:
+    """[S, gran] the thread (0..255) of a query's block that computes lane
+    l of slot s: l mod 256 in the block layout; in the warp layout warp s
+    mod 8, its lane l mod 32."""
+    s = torch.arange(S, device=device)[:, None]
+    lane = torch.arange(gran, device=device)[None, :]
+    if step.layout == "block":
+        return (lane % WIDE_THREADS).expand(S, gran)
+    return (s % WIDE_WARPS) * 32 + lane % 32
+
+
+def _lane_sums(lut, norm_tab, codes, norm_codes, row, bias_lane):
+    """bias_lane + norm_tab[norm_codes[row]] + sum_m lut[b, m, codes[row,
+    m]] in that order, for store rows ``row`` [B, L] (the kernels' order)."""
+    B, M = lut.shape[0], codes.shape[1]
+    flat = lut.reshape(B, M * KSUB)
+    acc = bias_lane + norm_tab[norm_codes[row].long()]
+    for m in range(M):
+        acc = acc + torch.gather(flat, 1, m * KSUB + codes[row, m].long())
+    return acc
+
+
+def wide_step_plain(lut, norm_tab, codes, norm_codes, start, length, bias,
+                    gran: int, step: WideStep) -> torch.Tensor:
+    """Plain version of :func:`scan_wide_step`. [B, S*gran] f32, +inf in
+    every lane l >= len[b, s]; in lane l < len[b, s]: for a "full" step
+    ``adc_scan_slots_plain``; "stores" bias[b, s]; "loads" (w0 ^ w1 ^ w2 ^
+    w3 ^ norm_codes[r]) & 0xffffff as f32, w_q the little-endian word of
+    code bytes 4q..4q+3 of row r = start[b, s] + l; "compute" the sum of
+    store row l mod 32 in the production order. "noout": [B, 256],
+    column t the minimum of the full output over the lanes thread t owns
+    (:func:`wide_owner`), +inf where it owns none that is valid."""
+    B, S = start.shape
+    mode = step.mode
+    if mode in ("full", "noout"):
+        out = adc_scan_slots_plain(lut, norm_tab, codes, norm_codes, start,
+                                   length, bias, gran)
+        if mode == "full":
+            return out
+        idx = wide_owner(step, S, gran, start.device).reshape(1, S * gran)
+        fold = torch.full((B, WIDE_THREADS), float("inf"),
+                          device=start.device)
+        return fold.scatter_reduce(1, idx.expand(B, -1), out, "amin")
+    lane = torch.arange(gran, device=start.device)
+    valid = (lane < length.long()[:, :, None]).reshape(B, S * gran)
+    if mode == "stores":
+        val = bias.repeat_interleave(gran, dim=1)
+    elif mode == "compute":
+        if codes.shape[1] != 16 or codes.shape[0] < 32:
+            raise ValueError(f"wide step {step.name}: needs M = 16 and 32 "
+                             f"store rows, got {tuple(codes.shape)}")
+        row = (lane % 32).repeat(S).expand(B, -1)
+        val = _lane_sums(lut, norm_tab, codes, norm_codes, row,
+                         bias.repeat_interleave(gran, dim=1))
+    else:
+        if codes.shape[1] != 16:
+            raise ValueError(f"wide step {step.name}: needs M = 16, got "
+                             f"{codes.shape[1]}")
+        if codes.shape[0] == 0:
+            return torch.full((B, S * gran), float("inf"),
+                              device=start.device)
+        row, _ = _slot_rows(start, length.clamp(max=gran), gran)
+        val = _row_xor(codes, norm_codes)[row].float()
+    return torch.where(valid, val, float("inf"))
+
+
+@functools.lru_cache(maxsize=None)
+def _wstep_entry():
+    """``ivf_lab_wstep`` (built at first use): the step, 8 pointers, B,
+    nslots, M, gran, the stream, info."""
+    from ivfhnsw_tpu_torch.ops.cuda.build import load_library
+    fn = load_library("scan_lab").ivf_lab_wstep
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wide_step_occupancy(step: WideStep, M: int) -> tuple[int, int, int]:
+    """(blocks per SM, dynamic shared-memory bytes, registers a thread) of
+    ``step``'s kernel at ``M`` subquantizers on the current CUDA device."""
+    info = (ctypes.c_int * 3)()
+    rc = _wstep_entry()(step.step, *([None] * 8), 0, 0, M, CHUNK, None,
+                        info)
+    if rc != 0:
+        raise RuntimeError(f"wide step {step.name}: occupancy query failed "
+                           f"with CUDA error {rc}")
+    return int(info[0]), int(info[1]), int(info[2])
+
+
+def scan_wide_step(lut, norm_tab, codes, norm_codes, start, length, bias,
+                   gran: int, step: WideStep) -> torch.Tensor:
+    """Wide-scan step ``step`` (one of :data:`WIDE_STEPS`) on the
+    production scan's inputs at slot width ``gran``: equal to
+    :func:`wide_step_plain` (a "full" step: to ``adc_scan_slots``, bit for
+    bit). "compute" and "loads" steps need M = 16 ("compute" 32 store
+    rows). CPU tensors go to the plain version; CUDA tensors launch the
+    step's kernel on the current stream, or raise; :data:`WIDE_LAUNCHES`
+    counts the launches."""
+    fn = "scan_wide_step"
+    if WIDE_STEPS.get(step.name) != step:
+        raise ValueError(f"{fn}: {step} is not one of WIDE_STEPS")
+    args = (lut, norm_tab, codes, norm_codes, start, length, bias)
+    B, S, N, M, dev = _check_step_args(fn, args, gran)
+    if step.mode in ("compute", "loads") and M != 16:
+        raise ValueError(f"{fn}: step {step.name} needs M = 16, got {M}")
+    if step.mode == "compute" and N < 32:
+        raise ValueError(f"{fn}: step {step.name} needs 32 store rows, "
+                         f"got {N}")
+    if dev.type == "cpu":
+        return wide_step_plain(*args, gran, step)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    if step.mode in ("compute", "loads") and codes.data_ptr() % 16:
+        raise ValueError(f"{fn}: step {step.name} needs 16-byte aligned "
+                         "codes")
+    cols = WIDE_THREADS if step.mode == "noout" else S * gran
+    out = torch.empty((B, cols), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _wstep_entry()(step.step, *(t.data_ptr() for t in args),
+                            out.data_ptr(), B, S, M, gran, stream, None)
+    if rc != 0:
+        raise RuntimeError(f"{fn} {step.name}: kernel launch failed with "
+                           f"CUDA error {rc}")
+    WIDE_LAUNCHES[step.name] += 1
+    return out
+
+
 # Wrapper and plain version of each kind.
 FUNCTIONS = {
     "direct": (scan_direct, scan_full_plain),
@@ -591,8 +838,8 @@ FUNCTIONS = {
 
 
 def reset_launches() -> None:
-    """Set every lab launch count to 0 (the min-scan steps' too)."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    for name in MIN_LAUNCHES:
-        MIN_LAUNCHES[name] = 0
+    """Set every lab launch count to 0 (the min-scan and wide-scan steps'
+    too)."""
+    for counts in (LAUNCHES, MIN_LAUNCHES, WIDE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0

@@ -166,21 +166,24 @@ def cuobjdump() -> str | None:
     return cand if os.path.exists(cand) else shutil.which("cuobjdump")
 
 
-def kernel_sass() -> dict:
-    """Loop statistics (``loop_stats``) of the production min kernel
-    (``adc_scan_slots_min_kernel`` in ``csrc/adc_scan.cu``'s library) and
-    of every step's kernel (``csrc/scan_lab.cu``'s), by step name, from
-    ``cuobjdump -sass`` of the libraries ``ops/cuda/build.py`` builds;
-    {} where cuobjdump is missing."""
+def kernel_sass(production: str | None = "adc_scan_slots_min_kernel",
+                steps=None) -> dict:
+    """Loop statistics (``loop_stats``) of the production kernel
+    ``production`` (in ``csrc/adc_scan.cu``'s library; the min kernel by
+    default, none for None) and of every step's kernel
+    (``csrc/scan_lab.cu``'s; ``steps``, default ``MIN_STEPS``), by step
+    name, from ``cuobjdump -sass`` of the libraries ``ops/cuda/build.py``
+    builds; {} where cuobjdump is missing."""
     from ivfhnsw_tpu_torch.ops.cuda.build import build_all
     tool = cuobjdump()
     if tool is None:
         return {}
     adc, lab = build_all(["adc_scan", "scan_lab"])
     out = {}
-    for lib, wanted in ((adc, {PRODUCTION: "adc_scan_slots_min_kernel"}),
-                        (lab, {s.name: s.kernel
-                               for s in sl.MIN_STEPS.values()})):
+    for lib, wanted in ((adc, {PRODUCTION: production} if production
+                         else {}),
+                        (lab, {s.name: s.kernel for s in (
+                            steps or sl.MIN_STEPS).values()})):
         text = subprocess.run([tool, "-sass", lib], capture_output=True,
                               text=True, check=True).stdout
         fns = parse_sass(text)
