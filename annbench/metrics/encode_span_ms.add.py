@@ -1,0 +1,9 @@
+"""``encode_span_ms.add``: device ms per added segment, of the operations
+launched inside the program's ``ivf.encode`` spans, from the device
+stretch."""
+
+from annbench.metrics._spans import span_ms
+
+
+def read(ctx):
+    return span_ms(ctx, "ivf.encode")

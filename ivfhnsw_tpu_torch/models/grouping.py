@@ -50,6 +50,7 @@ from ivfhnsw_tpu_torch.ops.pq import _pq_ip_luts
 from ivfhnsw_tpu_torch.ops.segment import segment_sum
 from ivfhnsw_tpu_torch.utils import io
 from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
+from ivfhnsw_tpu_torch.utils.profiling import COUNTERS, span, tracing
 from ivfhnsw_tpu_torch.utils.recall import rerank_order
 
 ALPHA_BATCH = 16384  # points per alpha/add sub-batch (JAX alpha_pass default)
@@ -248,7 +249,7 @@ class IVFADCGroupingIndex(IVFADCIndex):
         gran = gran or self.scan_gran()
         return self._fused_inputs(q, params, nprobe,
                                   self._scan_slots(params, nprobe, gran),
-                                  gran, self._coarse_for(params, nprobe))
+                                  gran, self._coarse_for(params, nprobe))[0]
 
     def enable_routed_coarse(self, *args, **kwargs):
         """Unsupported, as in the JAX package: the grouping engines select
@@ -482,15 +483,33 @@ class IVFADCGroupingIndex(IVFADCIndex):
         if two_phase:
             raise NotImplementedError("the grouping engines have no "
                                       "two-phase top-k; use scan_topk='auto'")
-        args = self._fused_inputs(q, params, nprobe, nslots, gran, coarse)
-        return fused.scan_topk(args, self.store.ids_t, params.k, gran)
+        args, eff_sizes = self._fused_inputs(q, params, nprobe, nslots, gran,
+                                             coarse)
+        out = fused.scan_topk(args, self.store.ids_t, params.k, gran)
+        if tracing():
+            self._count_scan(args, eff_sizes, gran)
+        return out
+
+    def _count_scan(self, args: tuple, eff_sizes: torch.Tensor,
+                    gran: int) -> None:
+        """As ``IVFADCIndex._count_scan``; ``scan.kept`` is each probe's
+        unpruned rows (``eff_sizes``) up to the rows its slots hold, so 0
+        for a probe the schedule left out."""
+        start, length, seg = args[6], args[7], args[9]
+        with span("ivf.count"):
+            rows = torch.zeros_like(eff_sizes, dtype=length.dtype
+                                    ).scatter_add_(1, seg.long(), length)
+            COUNTERS.add("scan.lanes", start.numel() * gran)
+            COUNTERS.add("scan.rows", rows.sum())
+            COUNTERS.add("scan.kept", torch.minimum(eff_sizes, rows).sum())
 
     def _fused_inputs(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
                       coarse: dict) -> tuple:
         """``ops.cuda.grouping_scan.scan_inputs`` of batch ``q`` over this
         index, with the coarse arguments ``coarse`` (never routed: the
-        grouping engines refuse it)."""
+        grouping engines refuse it), and each probe's unpruned rows
+        [B, nprobe]."""
         store, gv = self.store, self._grouped()
         return fused.scan_inputs(
             q, self.centroids, self.centroid_norms, self.pq.codebooks,

@@ -60,6 +60,7 @@ from ivfhnsw_tpu_torch.ops.pq import (ENCODE_ROWS, NormQuantizer,
 from ivfhnsw_tpu_torch.ops.topk import topk_smallest
 from ivfhnsw_tpu_torch.utils import io
 from ivfhnsw_tpu_torch.utils.config import IndexConfig, SearchParams
+from ivfhnsw_tpu_torch.utils.profiling import COUNTERS, span, tracing
 
 # Average codes per list at and above which "auto" picks 1024-code slots
 # (the JAX package's quad/chunk crossover, ivfadc.py:486-500).
@@ -347,13 +348,15 @@ class IVFADCIndex:
         that keep each [batch, block] score matrix under ~256 MB."""
         block = self._cb()
         batch = max(1024, min(131072, (1 << 26) // min(block, self.nc)))
-        out = torch.empty(x.shape[0], dtype=torch.int64, device=self.device)
-        for off in range(0, x.shape[0], batch):
-            _, idx = streaming_topk_l2(x[off:off + batch], self.centroids, 1,
-                                       block=block,
-                                       point_sqnorms=self.centroid_norms)
-            out[off:off + batch] = idx[:, 0]
-        return out
+        with span("ivf.assign"):
+            out = torch.empty(x.shape[0], dtype=torch.int64,
+                              device=self.device)
+            for off in range(0, x.shape[0], batch):
+                _, idx = streaming_topk_l2(x[off:off + batch], self.centroids,
+                                           1, block=block,
+                                           point_sqnorms=self.centroid_norms)
+                out[off:off + batch] = idx[:, 0]
+            return out
 
     def assign(self, x) -> np.ndarray:
         """Nearest-centroid ids for x [n, d] (IndexIVF_HNSW.cpp:68-72), by
@@ -422,9 +425,10 @@ class IVFADCIndex:
         (:func:`encode_batch`). Returns (codes [n, M] u8, norm_codes [n]
         u8) on the device."""
         self._check_rotation()
-        return encode_batch(x, keys, self.centroids, self.pq.codebooks,
-                            self.norm_pq.centroids,
-                            self.opq_R if self.do_opq else None)
+        with span("ivf.encode"):
+            return encode_batch(x, keys, self.centroids, self.pq.codebooks,
+                                self.norm_pq.centroids,
+                                self.opq_R if self.do_opq else None)
 
     def _encode(self, x: torch.Tensor, base: torch.Tensor):
         """residual against ``base`` -> [rotate] -> PQ -> decode ->
@@ -438,16 +442,18 @@ class IVFADCIndex:
     def add_batch(self, x, xids=None, precomputed_idx=None) -> None:
         """add_batch equivalent (IndexIVF_HNSW.cpp:75-138). Call finalize()
         after the last batch."""
-        x = self._tensor(x)
-        n = x.shape[0]
-        keys = self._keys_for(x, precomputed_idx)
-        if xids is None:
-            xids = np.arange(self.builder.ntotal, self.builder.ntotal + n,
-                             dtype=np.int32)
-        codes, norm_codes = self._encode_batch(x, keys)
-        self.builder.add(keys.cpu().numpy(), xids, codes.cpu().numpy(),
-                         norm_codes.cpu().numpy())
-        self.store = None
+        with span("ivf.add"):
+            x = self._tensor(x)
+            n = x.shape[0]
+            keys = self._keys_for(x, precomputed_idx)
+            if xids is None:
+                xids = np.arange(self.builder.ntotal, self.builder.ntotal + n,
+                                 dtype=np.int32)
+            codes, norm_codes = self._encode_batch(x, keys)
+            with span("ivf.to_host"):
+                self.builder.add(keys.cpu().numpy(), xids,
+                                 codes.cpu().numpy(), norm_codes.cpu().numpy())
+            self.store = None
 
     def _device_rows(self, x_dev: torch.Tensor, what: str) -> torch.Tensor:
         """f32 rows of a tensor already on this index's device, for the
@@ -660,10 +666,26 @@ class IVFADCIndex:
                       nprobe: int, nslots: int, gran: int, coarse: dict,
                       two_phase: bool):
         """Fused engine: ``ops.cuda.adc_scan.search_core``, as
-        :meth:`_fused_inputs` then ``scan_topk``."""
+        :meth:`_fused_inputs` then ``scan_topk``; while tracing, then
+        :meth:`_count_scan`."""
         args = self._fused_inputs(q, params, nprobe, nslots, gran, coarse)
-        return fused.scan_topk(args, self.store.ids_t, params.k, gran,
-                               two_phase)
+        out = fused.scan_topk(args, self.store.ids_t, params.k, gran,
+                              two_phase)
+        if tracing():
+            self._count_scan(args, gran)
+        return out
+
+    def _count_scan(self, args: tuple, gran: int) -> None:
+        """Add the scan of one batch to ``COUNTERS``, on the device:
+        ``scan.lanes`` (B x nslots x gran), ``scan.rows`` (rows in the
+        scheduled slots) and ``scan.kept`` (rows no pruning drops: all of
+        them here)."""
+        with span("ivf.count"):
+            start, length = args[4], args[5]
+            rows = length.sum()
+            COUNTERS.add("scan.lanes", start.numel() * gran)
+            COUNTERS.add("scan.rows", rows)
+            COUNTERS.add("scan.kept", rows)
 
     def _fused_inputs(self, q: torch.Tensor, params: SearchParams,
                       nprobe: int, nslots: int, gran: int,
@@ -703,18 +725,20 @@ class IVFADCIndex:
         f32, labels [B, k] int64), both on the device. ``trace`` takes the
         torch engine whatever ``engine`` says, and its core also returns
         the trace tuple (probes, qc_dists, included, n_scanned)."""
-        self._ensure_store()
-        nprobe = min(params.nprobe, self.nc)
-        engine = self._resolve_engine()
-        self._coarse_approx(params)        # an unknown mode raises here
-        if engine == "torch" or trace:
-            L = self._scan_budget(params)
-            return lambda q: self._search_torch(q, params, nprobe, L, trace)
-        nslots, gran = self._scan_slots(params, nprobe), self.scan_gran()
-        two_phase = self._resolve_two_phase()
-        coarse = self._coarse_for(params, nprobe)
-        return lambda q: self._search_fused(q, params, nprobe, nslots, gran,
-                                            coarse, two_phase)
+        with span("ivf.plan"):
+            self._ensure_store()
+            nprobe = min(params.nprobe, self.nc)
+            engine = self._resolve_engine()
+            self._coarse_approx(params)        # an unknown mode raises here
+            if engine == "torch" or trace:
+                L = self._scan_budget(params)
+                return lambda q: self._search_torch(q, params, nprobe, L,
+                                                    trace)
+            nslots, gran = self._scan_slots(params, nprobe), self.scan_gran()
+            two_phase = self._resolve_two_phase()
+            coarse = self._coarse_for(params, nprobe)
+            return lambda q: self._search_fused(q, params, nprobe, nslots,
+                                                gran, coarse, two_phase)
 
     def _search_batches(self, q_all: torch.Tensor, params: SearchParams,
                         batch: int, trace: bool = False):
@@ -722,8 +746,10 @@ class IVFADCIndex:
         (dists [N, k], labels [N, k]) on the device, and with ``trace`` the
         trace tuple over all N queries."""
         core = self._searcher(params, trace)
-        out = [core(q_all[off:off + batch])
-               for off in range(0, q_all.shape[0], batch)]
+        out = []
+        for off in range(0, q_all.shape[0], batch):
+            with span("ivf.chunk"):
+                out.append(core(q_all[off:off + batch]))
         res = tuple(torch.cat([o[i] for o in out]) for i in range(2))
         if trace:
             res += (tuple(torch.cat([o[2][i] for o in out])
@@ -766,18 +792,20 @@ class IVFADCIndex:
         copy and no synchronisation; :meth:`search` runs the same per-batch
         core. (The JAX package's scalar-memory batch cap and one-launch
         ``lax.map`` are TPU workarounds with no counterpart here.)"""
-        self._on_device(queries, "search_device (use search for host "
-                        "arrays)")
-        if queries.dim() not in (2, 3):
-            raise ValueError(f"queries must be [N, d] or [G, B, d], got "
-                             f"shape {tuple(queries.shape)}")
-        params = params or self._default_params()
-        q = queries.to(torch.float32)
-        if q.dim() == 2:
-            return self._search_batches(q, params, batch)
-        G, B, d = q.shape
-        dists, labels = self._search_batches(q.reshape(G * B, d), params, B)
-        return dists.reshape(G, B, -1), labels.reshape(G, B, -1)
+        with span("ivf.search"):
+            self._on_device(queries, "search_device (use search for host "
+                            "arrays)")
+            if queries.dim() not in (2, 3):
+                raise ValueError(f"queries must be [N, d] or [G, B, d], got "
+                                 f"shape {tuple(queries.shape)}")
+            params = params or self._default_params()
+            q = queries.to(torch.float32)
+            if q.dim() == 2:
+                return self._search_batches(q, params, batch)
+            G, B, d = q.shape
+            dists, labels = self._search_batches(q.reshape(G * B, d), params,
+                                                 B)
+            return dists.reshape(G, B, -1), labels.reshape(G, B, -1)
 
     def scan_slot_demand(self, queries, params: SearchParams,
                          batch: int = 8192) -> np.ndarray:

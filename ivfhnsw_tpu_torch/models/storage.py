@@ -29,6 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ivfhnsw_tpu_torch.utils.profiling import span
+
 
 @dataclass
 class PostingListStore:
@@ -175,30 +177,45 @@ class PostingListBuilder:
         return sum(k.shape[0] for k in self._keys)
 
     def finalize(self, device) -> PostingListStore:
-        if self._keys:
-            keys = np.concatenate(self._keys)
-            ids = np.concatenate(self._ids)
-            codes = np.concatenate(self._codes)
-            ncodes = np.concatenate(self._norm_codes)
-        else:
-            keys = np.zeros((0,), np.int32)
-            ids = np.zeros((0,), np.int32)
-            codes = np.zeros((0, self.code_m), np.uint8)
-            ncodes = np.zeros((0,), np.uint8)
-        sizes = np.bincount(keys, minlength=self.nc)
-        offsets = np.zeros(self.nc + 1, np.int32)
-        np.cumsum(sizes, out=offsets[1:])
-        # A stable sort on the device: the same order as numpy's stable
-        # argsort (a host sort of 134M keys took a minute), and the sorted
-        # arrays stay on the device as the store's tensors.
-        device = torch.device(device)
-        order = torch.sort(torch.from_numpy(keys).to(device),
-                           stable=True).indices
-        dev = {name: torch.from_numpy(a).to(device)[order]
-               for name, a in (("codes", codes), ("ids", ids),
-                               ("norm_codes", ncodes))}
-        store = PostingListStore(
-            **{name: t.cpu().numpy() for name, t in dev.items()},
-            list_offsets=offsets, nc=self.nc, device=device)
-        store._dev.update(dev)
-        return store
+        """The store of every batch added, its tensors on ``device``. Its
+        spans: ``ivf.finalize.host`` (concatenation and list offsets),
+        ``.upload``, ``.sort`` (the sort and the permutation of each
+        array) and ``.copy_back`` (the sorted arrays to the host)."""
+        with span("ivf.finalize"):
+            with span("ivf.finalize.host"):
+                if self._keys:
+                    keys = np.concatenate(self._keys)
+                    ids = np.concatenate(self._ids)
+                    codes = np.concatenate(self._codes)
+                    ncodes = np.concatenate(self._norm_codes)
+                else:
+                    keys = np.zeros((0,), np.int32)
+                    ids = np.zeros((0,), np.int32)
+                    codes = np.zeros((0, self.code_m), np.uint8)
+                    ncodes = np.zeros((0,), np.uint8)
+                sizes = np.bincount(keys, minlength=self.nc)
+                offsets = np.zeros(self.nc + 1, np.int32)
+                np.cumsum(sizes, out=offsets[1:])
+            # A stable sort on the device: the same order as numpy's stable
+            # argsort (a host sort of 134M keys took a minute), and the
+            # sorted arrays stay on the device as the store's tensors.
+            device = torch.device(device)
+            with span("ivf.finalize.upload"):
+                keys_t = torch.from_numpy(keys).to(device)
+            with span("ivf.finalize.sort"):
+                order = torch.sort(keys_t, stable=True).indices
+            del keys_t
+            dev = {}
+            for name, a in (("codes", codes), ("ids", ids),
+                            ("norm_codes", ncodes)):
+                with span("ivf.finalize.upload"):
+                    t = torch.from_numpy(a).to(device)
+                with span("ivf.finalize.sort"):
+                    dev[name] = t[order]
+                del t
+            with span("ivf.finalize.copy_back"):
+                store = PostingListStore(
+                    **{name: t.cpu().numpy() for name, t in dev.items()},
+                    list_offsets=offsets, nc=self.nc, device=device)
+            store._dev.update(dev)
+            return store

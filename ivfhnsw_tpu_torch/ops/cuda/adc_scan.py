@@ -44,6 +44,7 @@ from ivfhnsw_tpu_torch.ops.pq import _pq_ip_luts
 from ivfhnsw_tpu_torch.ops.routed_coarse import routed_select_ext
 from ivfhnsw_tpu_torch.ops.topk import (binned_topk_smallest,
                                        topk_smallest)
+from ivfhnsw_tpu_torch.utils.profiling import span
 
 CHUNK = 256    # slot width of the JAX package's "chunk" layout
 RCHUNK = 1024  # slot width of its "quad" layout
@@ -212,8 +213,10 @@ def adc_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
     CPU tensors go to the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback. ``launches`` counts
     kernel launches."""
-    return _scan(adc_scan_slots, adc_scan_slots_plain, start.shape[1] * gran,
-                 lut, norm_tab, codes, norm_codes, start, length, bias, gran)
+    with span("ivf.scan"):
+        return _scan(adc_scan_slots, adc_scan_slots_plain,
+                     start.shape[1] * gran, lut, norm_tab, codes, norm_codes,
+                     start, length, bias, gran)
 
 
 adc_scan_slots.launches = 0
@@ -246,9 +249,10 @@ def adc_scan_slots_min(lut: torch.Tensor, norm_tab: torch.Tensor,
     CPU tensors go to the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback. ``launches`` counts
     kernel launches."""
-    return _scan(adc_scan_slots_min, adc_scan_slots_min_plain,
-                 start.shape[1], lut, norm_tab, codes, norm_codes, start,
-                 length, bias, gran)
+    with span("ivf.scan"):
+        return _scan(adc_scan_slots_min, adc_scan_slots_min_plain,
+                     start.shape[1], lut, norm_tab, codes, norm_codes, start,
+                     length, bias, gran)
 
 
 adc_scan_slots_min.launches = 0
@@ -292,18 +296,19 @@ def select_probes(queries: torch.Tensor, centroids: torch.Tensor,
     offsets come with the probes, no per-probe gather). Returns (qc_dists
     f32, probes int64, term1 = qc_dist - ||c||^2 f32, lo int64 = first row
     of the probe's list, sizes int64), all [B, nprobe]."""
-    if routed is not None:
-        qc_dists, probes, term1, sizes, lo = routed_select_ext(
-            queries, *routed, nprobe=nprobe, w=routed_w)
-        return qc_dists, probes, term1, lo, sizes
-    qc_dists, probes = streaming_topk_l2(
-        queries, centroids, nprobe, block=coarse_block,
-        point_sqnorms=centroid_norms, exact_reduce=exact_reduce,
-        approx=approx, recall_target=recall_target)
-    off = list_offsets.long()
-    lo = off[probes]
-    return (qc_dists, probes, qc_dists - centroid_norms[probes], lo,
-            off[probes + 1] - lo)
+    with span("ivf.coarse"):
+        if routed is not None:
+            qc_dists, probes, term1, sizes, lo = routed_select_ext(
+                queries, *routed, nprobe=nprobe, w=routed_w)
+            return qc_dists, probes, term1, lo, sizes
+        qc_dists, probes = streaming_topk_l2(
+            queries, centroids, nprobe, block=coarse_block,
+            point_sqnorms=centroid_norms, exact_reduce=exact_reduce,
+            approx=approx, recall_target=recall_target)
+        off = list_offsets.long()
+        lo = off[probes]
+        return (qc_dists, probes, qc_dists - centroid_norms[probes], lo,
+                off[probes + 1] - lo)
 
 
 def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
@@ -320,10 +325,11 @@ def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
     _, _, term1, lo, sizes = select_probes(
         queries, centroids, centroid_norms, list_offsets, nprobe=nprobe,
         coarse_block=coarse_block, **coarse)
-    start, length, bias, _ = slot_schedule(
-        lo, sizes, probe_budget(sizes, max_codes), term1, nslots, gran)
-    lut = build_luts(queries if lut_queries is None else lut_queries,
-                     codebooks)
+    with span("ivf.tables"):
+        start, length, bias, _ = slot_schedule(
+            lo, sizes, probe_budget(sizes, max_codes), term1, nslots, gran)
+        lut = build_luts(queries if lut_queries is None else lut_queries,
+                         codebooks)
     return (lut, norm_centroids, codes, norm_codes, start, length, bias)
 
 
@@ -341,8 +347,9 @@ def topk_labels(dists: torch.Tensor, start: torch.Tensor, ids: torch.Tensor,
     """Bin-32 top-k of the scan output [B, nslots*gran] and id resolution
     through the slots' start rows. Returns (dists [B, k] ascending,
     labels [B, k] int64, -1 where the distance is +inf)."""
-    best, sel = binned_topk_smallest(dists, k, bin_size=32)
-    return best, slot_labels(best, sel, start, ids, gran)
+    with span("ivf.topk"):
+        best, sel = binned_topk_smallest(dists, k, bin_size=32)
+        return best, slot_labels(best, sel, start, ids, gran)
 
 
 def slot_labels(best: torch.Tensor, sel: torch.Tensor, start: torch.Tensor,
@@ -380,8 +387,10 @@ def two_phase_topk(lut: torch.Tensor, norm_tab: torch.Tensor,
     Returns (dists [B, k] ascending, labels [B, k] int64)."""
     mins = adc_scan_slots_min(lut, norm_tab, codes, norm_codes, start,
                               length, bias, gran)
-    _, ssel = topk_smallest(mins, min(k, mins.shape[1]))
-    st, ln, bs = (torch.gather(x, 1, ssel) for x in (start, length, bias))
+    with span("ivf.topk"):
+        _, ssel = topk_smallest(mins, min(k, mins.shape[1]))
+        st, ln, bs = (torch.gather(x, 1, ssel) for x in (start, length, bias))
     dists = adc_scan_slots(lut, norm_tab, codes, norm_codes, st, ln, bs, gran)
-    best, sel = topk_smallest(dists, k)
-    return best, slot_labels(best, sel, st, ids, gran)
+    with span("ivf.topk"):
+        best, sel = topk_smallest(dists, k)
+        return best, slot_labels(best, sel, st, ids, gran)

@@ -35,6 +35,7 @@ from ivfhnsw_tpu_torch.ops.cuda.adc_scan import (KSUB, _check, build_luts,
                                                  slot_schedule, topk_labels)
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu_torch.ops.grouping import probe_budget, query_terms
+from ivfhnsw_tpu_torch.utils.profiling import span
 
 # Shared memory a block of the kernel may use on sm_90 (227 KB).
 MAX_SMEM = 232448
@@ -180,10 +181,11 @@ def grouping_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
     fn = "grouping_scan_slots"
     args = (lut, norm_tab, t2, codes, norm_codes, subc, start, length, bias,
             seg)
-    dims = check_scan_args(fn, *args, gran)
-    if lut.device.type == "cpu":
-        return grouping_scan_slots_plain(*args, gran)
-    out = launch_scan(fn, _kernel(), args, gran, dims)
+    with span("ivf.scan"):
+        dims = check_scan_args(fn, *args, gran)
+        if lut.device.type == "cpu":
+            return grouping_scan_slots_plain(*args, gran)
+        out = launch_scan(fn, _kernel(), args, gran, dims)
     grouping_scan_slots.launches += 1
     return out
 
@@ -203,31 +205,34 @@ def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
                 recall_target: float = 0.95,
                 lut_queries: torch.Tensor | None = None) -> tuple:
     """Steps 1-4 of the fused Grouping(+Pruning) search of a query batch
-    (coarse, grouping terms, schedule, LUTs): the scan inputs (lut,
-    norm_tab, t2, codes, norm_codes, subc, start, length, bias, seg) in
-    :func:`grouping_scan_slots`' order. ``lut_queries`` (the OPQ-rotated
+    (coarse, grouping terms, schedule, LUTs). Returns (the scan inputs
+    (lut, norm_tab, t2, codes, norm_codes, subc, start, length, bias, seg)
+    in :func:`grouping_scan_slots`' order, eff_sizes [B, nprobe] the rows
+    of each probe's unpruned subgroups). ``lut_queries`` (the OPQ-rotated
     queries) replaces ``queries`` for the LUTs; coarse selection and the
     grouping terms stay in the original space."""
-    qc_dists, probes = streaming_topk_l2(
-        queries, centroids, nprobe, block=coarse_block,
-        point_sqnorms=centroid_norms, exact_reduce=exact_reduce,
-        approx=approx, recall_target=recall_target)
-    term1, term2, scan, ssz = query_terms(
-        queries, qc_dists, probes, centroids, centroid_norms, nn_idxs,
-        alphas, inter_dists, sub_sizes, max_codes, do_pruning)
-    t2 = torch.where(scan, term2, float("inf"))
-    eff_sizes = torch.where(scan, ssz, 0).sum(dim=2)
-    start, length, bias, seg = grouping_schedule(
-        probes, term1, eff_sizes, ssz.sum(dim=2), group_offsets, max_codes,
-        nslots, gran)
-    lut = build_luts(queries if lut_queries is None else lut_queries,
-                     codebooks)
-    return (lut, norm_centroids, t2, codes, norm_codes, subc, start, length,
-            bias, seg)
+    with span("ivf.coarse"):
+        qc_dists, probes = streaming_topk_l2(
+            queries, centroids, nprobe, block=coarse_block,
+            point_sqnorms=centroid_norms, exact_reduce=exact_reduce,
+            approx=approx, recall_target=recall_target)
+    with span("ivf.tables"):
+        term1, term2, scan, ssz = query_terms(
+            queries, qc_dists, probes, centroids, centroid_norms, nn_idxs,
+            alphas, inter_dists, sub_sizes, max_codes, do_pruning)
+        t2 = torch.where(scan, term2, float("inf"))
+        eff_sizes = torch.where(scan, ssz, 0).sum(dim=2)
+        start, length, bias, seg = grouping_schedule(
+            probes, term1, eff_sizes, ssz.sum(dim=2), group_offsets,
+            max_codes, nslots, gran)
+        lut = build_luts(queries if lut_queries is None else lut_queries,
+                         codebooks)
+    return ((lut, norm_centroids, t2, codes, norm_codes, subc, start, length,
+             bias, seg), eff_sizes)
 
 
 def scan_topk(args: tuple, ids: torch.Tensor, k: int, gran: int):
-    """Steps 5-6 over :func:`scan_inputs`' ``args``: the scan, the bin-32
+    """Steps 5-6 over :func:`scan_inputs`' scan inputs ``args``: the scan, the bin-32
     top-k and id resolution. Returns (dists [B, k] f32 ascending, labels
     [B, k] int64, -1 where the distance is +inf)."""
     return topk_labels(grouping_scan_slots(*args, gran), args[6], ids, k,

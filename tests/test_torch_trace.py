@@ -180,20 +180,8 @@ def test_trace_rejects_unported_coarse_modes(built):
 
 
 def test_stage_timer_and_counters_report_as_jax():
-    """StageTimer and Counters give JAX's report text and dict for the same
-    calls (the times themselves are set, not measured)."""
-    a, b = profiling.StageTimer(), jax_profiling.StageTimer()
-    for timer in (a, b):
-        with timer.stage("scan"):
-            pass
-        with timer.stage("coarse"):
-            pass
-        with timer.stage("scan"):
-            pass
-        timer.totals.update({"scan": 1.25, "coarse": 3.5})
-    assert a.report() == b.report()
-    assert a.report().splitlines()[0].startswith("coarse ")
-    assert dict(a.counts) == {"scan": 2, "coarse": 1}
+    """Counters give JAX's report dict for the same calls. (The port has no
+    StageTimer: its stages are ``utils/profiling.py::span``.)"""
     c, d = profiling.Counters(), jax_profiling.Counters()
     for ctr in (c, d):
         ctr.add("codes_scanned", 10)
