@@ -12,7 +12,11 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    slots (and, for the grouping kernel, pruned subgroups), at both slot
    widths (256 and 1024 codes); the min-scan and the grouping kernel bit
    for bit (torch.equal) against their plain versions, the min-scan kernel
-   also against the wide kernel's per-slot minima;
+   also against the wide kernel's per-slot minima; the wide and grouping
+   kernels launched as the search launches them, with the bin-32 minima
+   of their lanes, which are torch.equal to the plain lanes' minima, and
+   the lanes the same without them (here and wherever a later phase checks
+   or times K1/K2 or K5/K6, it launches them so);
 4. the IVFADC main path through the file-backed driver command
    (drivers/ivfadc_eval.py::main over -path_* flags, run 1 of phase 12) at
    the primary point: the synthetic 2M x 128d corpus of seed 0 and its
@@ -426,7 +430,7 @@ def phase_kernels_vs_plain(device, nb: int) -> None:
                  tg.grouping_scan_slots_plain,
                  (lut, ntab, t2, codes, ncodes, subc, start, length, bias,
                   seg, gran))):
-            out = fn(*args)
+            out, bins = fn(*args, bins=True)
             _sync(device)
             if torch.isnan(out).any():
                 raise AssertionError(f"{tag} gran={gran}: NaN lanes")
@@ -435,9 +439,14 @@ def phase_kernels_vs_plain(device, nb: int) -> None:
             if tag == "gkernel" and not torch.equal(out, ref):
                 raise AssertionError(f"gkernel synthetic gran={gran}: not "
                                      "torch.equal to its plain version")
+            check_bins(bins, ref, f"{tag} synthetic gran={gran}")
+            if not torch.equal(fn(*args), out):
+                raise AssertionError(f"{tag} synthetic gran={gran}: lanes "
+                                     "differ without bin minima")
             print(f"[{tag}] gran={gran} B={B} slots={nslots}: matches plain"
                   + (" (torch.equal)" if tag == "gkernel" else "")
-                  + f", max_abs_err={err!r}", flush=True)
+                  + f", max_abs_err={err!r}; bin minima torch.equal to the "
+                  "plain lanes', lanes the same without them", flush=True)
             if tag == "kernel":
                 check_min_kernel(args, out, f"synthetic gran={gran}")
 
@@ -451,7 +460,8 @@ MIN_RIVALS = ("dp4a_tma_b8", "dp4a_pf_b6")
 
 def first_port_turns(args, rounds: int = 5, rivals=(),
                      wide: bool = False) -> dict:
-    """The production min kernel (with ``wide`` the wide kernel) against
+    """The production min kernel (with ``wide`` the wide kernel, writing
+    its bin minima as the search does) against
     its first port (``scan_lab.scan_min_step`` / ``scan_wide_step``
     "first_port": ``direct_min_kernel`` / ``direct_wide_kernel``) on
     ``args`` (the scan wrappers' arguments, gran last), the first port and
@@ -463,7 +473,7 @@ def first_port_turns(args, rounds: int = 5, rivals=(),
     from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
     from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
     from ivfhnsw_tpu_torch.tools.min_probe import in_turns, wins
-    prod_fn = tk.adc_scan_slots if wide else tk.adc_scan_slots_min
+    prod_fn = wide_lanes if wide else tk.adc_scan_slots_min
     table, run_step = ((sl.WIDE_STEPS, sl.scan_wide_step) if wide
                        else (sl.MIN_STEPS, sl.scan_min_step))
 
@@ -507,6 +517,30 @@ def turns_text(r: dict) -> str:
 # sparse schedules): the first port's stores as production had them
 # before this design, and the two layouts production takes by slot width.
 WIDE_RIVALS = ("stream", "warp", "dp4a")
+
+
+def check_bins(bins, ref, what: str) -> None:
+    """The bin-32 minima a production scan wrote beside its lanes:
+    torch.equal to the minima of its plain version's lanes ``ref``."""
+    import torch
+    from ivfhnsw_tpu_torch.ops.cuda.adc_scan import bin_minima
+    if not torch.equal(bins, bin_minima(ref)):
+        raise AssertionError(f"{what}: bin minima not torch.equal to the "
+                             "plain lanes' minima")
+
+
+def wide_lanes(*args):
+    """K1 / K2 as the search launches them, writing the bin minima too;
+    returns the lanes."""
+    from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+    return tk.adc_scan_slots(*args, bins=True)[0]
+
+
+def grouping_lanes(*args):
+    """K5 / K6 as the search launches them, writing the bin minima too;
+    returns the lanes."""
+    from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
+    return tg.grouping_scan_slots(*args, bins=True)[0]
 
 
 def check_min_kernel(args, wide, what: str) -> None:
@@ -950,10 +984,13 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
             probes, qc, index.centroid_norms, st.list_offsets_t,
             params.max_codes, nslots, gran)
         luts = lambda: tk.build_luts(q, index.pq.codebooks)
-        dists = tk.adc_scan_slots(*args)
-        err = compare(dists, tk.adc_scan_slots_plain(*args),
-                      f"main-path gran={gran}")
-        topk = lambda: binned_topk_smallest(dists, params.k, bin_size=32)
+        dists, bins = tk.adc_scan_slots(*args, bins=True)
+        ref = tk.adc_scan_slots_plain(*args)
+        err = compare(dists, ref, f"main-path gran={gran}")
+        check_bins(bins, ref, f"main-path gran={gran}")
+        del ref
+        topk = lambda: binned_topk_smallest(dists, params.k, bin_size=32,
+                                            bmin=bins)
         best, sel = topk()
         ids = lambda: st.ids_t[torch.gather(start, 1, sel // gran)
                                + sel % gran]
@@ -963,7 +1000,7 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
             st.list_offsets_t, params.max_codes, nprobe=params.nprobe,
             k=params.k, nslots=nslots, gran=gran,
             coarse_block=index._coarse_block_for(q.shape[0]))
-        ms = device_ms(lambda: tk.adc_scan_slots(*args))
+        ms = device_ms(lambda: wide_lanes(*args))
         plain_ms = device_ms(lambda: tk.adc_scan_slots_plain(*args))
         layers = {"coarse": device_ms(coarse), "luts": device_ms(luts),
                   "schedule": device_ms(sched), "scan": ms,
@@ -971,11 +1008,12 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
                   "search_core": device_ms(core)}
         valid = int(length.sum())
         nbytes = (valid * (st.code_m + 1) + dists.numel() * 4
-                  + B * (st.code_m + 1) * 1024)
+                  + bins.numel() * 4 + B * (st.code_m + 1) * 1024)
         wturns = first_port_turns(args, wide=True)
         print(f"[kernel] main-path gran={gran} B={B} slots={nslots} "
               f"lane fill {valid / dists.numel():.3f}: kernel {ms:.4f} ms "
-              f"({nbytes / ms / 1e6:.1f} GB/s of codes+output+LUT), plain "
+              f"({nbytes / ms / 1e6:.1f} GB/s of codes+output+bins+LUT), "
+              f"bin minima torch.equal to the plain lanes', plain "
               f"{plain_ms:.4f} ms, max_abs_err {err!r}; "
               f"{turns_text(wturns)}", flush=True)
         print(f"[layers] gran={gran} B={B} ms " + json.dumps(
@@ -985,7 +1023,7 @@ def run(device, p: dict, files: SmokeFiles, s2: dict = SCALE2,
                         "launches": launches[gran], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms,
                         **scan_bound(args, dists.numel(), st.code_m + 1,
-                                     st.code_m + 1),
+                                     st.code_m + 1, bins=True),
                         "library_ms": None, **wturns})
     # End to end, engine "fused": each slot width at batch 1024 and 8192
     # (the default), in turns (A B C D D C B A), after phase 4's runs.
@@ -1675,24 +1713,26 @@ def run_grouping(device, p: dict, cfg, ds, files: SmokeFiles):
         luts = lambda: tg.build_luts(q_rot, gi.pq.codebooks)
         args = (luts(), gi.norm_pq.centroids, t2, st.codes_t,
                 st.norm_codes_t, gv.subc_t, start, length, bias, seg, gran)
-        dists = tg.grouping_scan_slots(*args)
+        dists, bins = tg.grouping_scan_slots(*args, bins=True)
         ref = tg.grouping_scan_slots_plain(*args)
         err = compare(dists, ref, f"grouping main-path gran={gran}")
         if not torch.equal(dists, ref):
             raise AssertionError(f"grouping main-path gran={gran}: kernel "
                                  "not torch.equal to its plain version")
-        topk = lambda: tg.topk_labels(dists, start, st.ids_t, params.k, gran)
+        check_bins(bins, ref, f"grouping main-path gran={gran}")
+        topk = lambda: tg.topk_labels(dists, start, st.ids_t, params.k, gran,
+                                      bins)
         core = lambda: gi._search_fused(
             q, params, params.nprobe, nslots, gran,
             gi._coarse_for(params, params.nprobe), False)
-        ms = device_ms(lambda: tg.grouping_scan_slots(*args))
+        ms = device_ms(lambda: grouping_lanes(*args))
         plain_ms = device_ms(lambda: tg.grouping_scan_slots_plain(*args),
                              reps=5)
         layers = {"coarse": device_ms(coarse), "terms": device_ms(terms),
                   "schedule": device_ms(sched), "luts": device_ms(luts),
                   "scan": ms, "topk_ids": device_ms(topk),
                   "search_core": device_ms(core)}
-        b = grouping_scan_bound(args[:-1], dists, gran)
+        b = grouping_scan_bound(args[:-1], dists, gran, bins=True)
         valid, kept = b.pop("filled_lanes"), b.pop("kept_lanes")
         print(f"[gkernel] main-path gran={gran} B={B} slots={nslots} lane "
               f"fill {valid / dists.numel():.3f}, unpruned lanes "
@@ -1700,7 +1740,8 @@ def run_grouping(device, p: dict, cfg, ds, files: SmokeFiles):
               f"(bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
               f"{b['bound_ms'] / ms:.3f} of the kernel's time; lookups "
               f"{b['lookup_ms']:.4f} ms), plain {plain_ms:.4f} ms, "
-              f"torch.equal to plain, max_abs_err {err!r}", flush=True)
+              f"torch.equal to plain, bin minima too, max_abs_err "
+              f"{err!r}", flush=True)
         print(f"[glayers] gran={gran} B={B} ms " + json.dumps(
             {k: round(v, 4) for k, v in layers.items()}), flush=True)
         bounds[gran] = b
@@ -2423,24 +2464,29 @@ def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
         gran = idx.scan_gran()
         args = (*idx.scan_inputs(q, params), gran)
         length = args[5]
-        wide = tk.adc_scan_slots(*args)
-        err = compare(wide, tk.adc_scan_slots_plain(*args),
-                      f"siftlike gran={gran}")
+        wide, bins = tk.adc_scan_slots(*args, bins=True)
+        ref = tk.adc_scan_slots_plain(*args)
+        err = compare(wide, ref, f"siftlike gran={gran}")
+        check_bins(bins, ref, f"siftlike gran={gran}")
+        del ref, bins
         check_min_kernel(args, wide, f"siftlike gran={gran}")
         fill = int(length.sum()) / (B * length.shape[1] * gran)
-        ms = device_ms(lambda: tk.adc_scan_slots(*args))
+        ms = device_ms(lambda: wide_lanes(*args))
         ms_min = device_ms(lambda: tk.adc_scan_slots_min(*args))
         del wide
         wturns = first_port_turns(args, wide=True)
         gargs = (*g.grouping_scan_inputs(q, gp), gran)
-        gout = tg.grouping_scan_slots(*gargs)
-        if not torch.equal(gout, tg.grouping_scan_slots_plain(*gargs)):
+        gout, gbins = tg.grouping_scan_slots(*gargs, bins=True)
+        gref = tg.grouping_scan_slots_plain(*gargs)
+        if not torch.equal(gout, gref):
             raise AssertionError(f"siftlike grouping gran={gran}: kernel "
                                  "not torch.equal to its plain version")
+        check_bins(gbins, gref, f"siftlike grouping gran={gran}")
+        del gref, gbins
         glen = int(gargs[7].sum())
         gfill = glen / gout.numel()
         kept = int(torch.isfinite(gout).sum()) / max(glen, 1)
-        gms = device_ms(lambda: tg.grouping_scan_slots(*gargs))
+        gms = device_ms(lambda: grouping_lanes(*gargs))
         for name, t_ms, lane_fill in (
                 (f"adc_scan_slots_gran{gran}", ms, fill),
                 (f"adc_scan_slots_min_gran{gran}", ms_min, fill),
@@ -2453,8 +2499,8 @@ def run_siftlike(device, p: dict, cfg, gcfg, results: dict, gresults: dict,
               f"{turns_text(wturns)}", flush=True)
         print(f"[siftlike] kernels at gran {gran}, B={B}: wide {ms:.4f} ms, "
               f"min {ms_min:.4f} ms, lane fill {fill:.3f} over "
-              f"{length.shape[1]} slots (max_abs_err {err!r}, min kernel "
-              f"torch.equal); grouping {gms:.4f} ms, lane fill {gfill:.3f} "
+              f"{length.shape[1]} slots (max_abs_err {err!r}, bin minima "
+              f"and min kernel torch.equal); grouping {gms:.4f} ms, lane fill {gfill:.3f} "
               f"over {gargs[6].shape[1]} slots, unpruned {kept:.3f} of "
               f"filled lanes (torch.equal to plain)", flush=True)
     # the min kernel against its first port on this corpus's codes
@@ -2845,7 +2891,7 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
         args = (*index.scan_inputs(q, prm, gran), gran)
         length = args[5]
         fill = int(length.sum()) / (B * length.shape[1] * gran)
-        wide = tk.adc_scan_slots(*args)
+        wide, bins = tk.adc_scan_slots(*args, bins=True)
         mins = tk.adc_scan_slots_min(*args)
         for name, got, plain in (
                 (f"adc_scan_slots_gran{gran}", wide, tk.adc_scan_slots_plain),
@@ -2855,16 +2901,17 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
             if not torch.equal(got, ref):
                 raise AssertionError(f"scale2 {name}: kernel not torch.equal "
                                      "to its plain version")
-            wrapper = (tk.adc_scan_slots_min if "min" in name
-                       else tk.adc_scan_slots)
+            wide = "min" not in name
+            if wide:
+                check_bins(bins, ref, f"scale2 {name}")
+            wrapper = wide_lanes if wide else tk.adc_scan_slots_min
             r = {"ms": device_ms(lambda w=wrapper: w(*args)),
                  "plain_ms": device_ms(lambda p=plain: p(*args), reps=3,
                                        warmup=1),
                  "slots": length.shape[1], "lane_fill": fill,
                  **scan_bound(args, got.numel(), st.code_m + 1,
-                              st.code_m + (2 if "min" in name else 1))}
+                              st.code_m + (1 if wide else 2), bins=wide)}
             del ref
-            wide = "min" not in name
             r.update(first_port_turns(
                 args, rivals=WIDE_RIVALS if wide else MIN_RIVALS, wide=wide))
             for krec in kernels:
@@ -2876,7 +2923,7 @@ def run_scale2(device, s: dict, pl: PhaseLaunches, kernels: list) -> dict:
                   f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
                   + f"; {turns_text(r)}",
                   flush=True)
-        del args, wide, mins
+        del args, wide, bins, mins
     index.scan_topk = "auto"
     whole = us["quad", "wide", "exact"] * B / 1e3
     fastest = min(coarse_ms["exact"], coarse_ms["binned"])
@@ -3578,8 +3625,10 @@ def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
                        wide_rivals=()) -> None:
     """K1 and K3 (gran 256) or K2 and K4 (gran 1024) on the schedule
     ``args`` (the scan wrappers' arguments, gran last): each torch.equal to
-    its plain version, then both timed, with the bound beside them, and
-    each against its first port in turns (K3 / K4 with the min steps
+    its plain version (K1 / K2 launched as the search launches them, their
+    bin minima torch.equal to the plain lanes' too), then both timed, with
+    the bound beside them, and each against its first port in turns (K3 /
+    K4 with the min steps
     ``rivals``, K1 / K2 with the wide steps ``wide_rivals``); the record (``extra`` and those numbers) goes under ``key`` in the
     kernel's entry of ``kernels`` and on a ``tag`` line."""
     import torch
@@ -3590,22 +3639,27 @@ def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
     gran, length, code_m = args[-1], args[5], args[2].shape[1]
     B, S = length.shape
     for name, wrapper, plain in (
-            (f"adc_scan_slots_gran{gran}", tk.adc_scan_slots,
+            (f"adc_scan_slots_gran{gran}", wide_lanes,
              tk.adc_scan_slots_plain),
             (f"adc_scan_slots_min_gran{gran}", tk.adc_scan_slots_min,
              tk.adc_scan_slots_min_plain)):
+        wide = "min" not in name
         got = wrapper(*args)
-        if not torch.equal(got, plain(*args)):
+        ref = plain(*args)
+        if not torch.equal(got, ref):
             raise AssertionError(f"{tag} {name} on {what}: kernel not "
                                  "torch.equal to its plain version")
+        if wide:
+            check_bins(tk.adc_scan_slots(*args, bins=True)[1], ref,
+                       f"{tag} {name} on {what}")
+        del ref
         r = {**extra, "slots": S,
              "lane_fill": int(length.sum()) / (B * S * gran),
              "ms": device_ms(lambda w=wrapper: w(*args)),
              "plain_ms": device_ms(lambda p=plain: p(*args), reps=3,
                                    warmup=1),
              **scan_bound(args, got.numel(), code_m + 1,
-                          code_m + (2 if "min" in name else 1))}
-        wide = "min" not in name
+                          code_m + (1 if wide else 2), bins=wide)}
         r.update(first_port_turns(args, rivals=wide_rivals if wide else rivals,
                                   wide=wide))
         turns = f"; {turns_text(r)}"
@@ -3621,7 +3675,8 @@ def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
             if krec["name"] == name:
                 krec[key] = r
         print(f"{tag} {name} on {what} (B={B}, {S} slots, lane fill "
-              f"{r['lane_fill']:.3f}): torch.equal to plain; kernel "
+              f"{r['lane_fill']:.3f}): torch.equal to plain"
+              f"{', bin minima too' if wide else ''}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}{turns}", flush=True)
         del got
@@ -3630,8 +3685,9 @@ def check_scan_kernels(args: tuple, kernels: list, key: str, tag: str,
 def check_grouping_kernel(args: tuple, kernels: list, key: str, tag: str,
                           what: str, extra: dict) -> None:
     """K5 (gran 256) or K6 (gran 1024) on the schedule ``args`` (the
-    grouping wrapper's arguments, gran last): torch.equal to its plain
-    version, then both timed, with the bound beside them; the record
+    grouping wrapper's arguments, gran last), launched as the search
+    launches it: torch.equal to its plain version, its bin minima to the
+    plain lanes', then both timed, with the bound beside them; the record
     (``extra`` and those numbers) goes under ``key`` in the kernel's entry
     of ``kernels`` and on a ``tag`` line."""
     import torch
@@ -3639,15 +3695,18 @@ def check_grouping_kernel(args: tuple, kernels: list, key: str, tag: str,
     from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
     gran = args[-1]
     name = f"grouping_scan_slots_gran{gran}"
-    got = tg.grouping_scan_slots(*args)
-    if not torch.equal(got, tg.grouping_scan_slots_plain(*args)):
+    got, bins = tg.grouping_scan_slots(*args, bins=True)
+    ref = tg.grouping_scan_slots_plain(*args)
+    if not torch.equal(got, ref):
         raise AssertionError(f"{tag} {name} on {what}: kernel not "
                              "torch.equal to its plain version")
-    b = grouping_scan_bound(args[:-1], got, gran)
+    check_bins(bins, ref, f"{tag} {name} on {what}")
+    del ref, bins
+    b = grouping_scan_bound(args[:-1], got, gran, bins=True)
     kept, filled = b.pop("kept_lanes"), b.pop("filled_lanes")
     r = {**extra, "slots": args[6].shape[1],
          "lane_fill": filled / got.numel(), "unpruned": kept / max(filled, 1),
-         "ms": device_ms(lambda: tg.grouping_scan_slots(*args)),
+         "ms": device_ms(lambda: grouping_lanes(*args)),
          "plain_ms": device_ms(lambda: tg.grouping_scan_slots_plain(*args),
                                reps=3, warmup=1), **b}
     for krec in kernels:
@@ -3655,7 +3714,8 @@ def check_grouping_kernel(args: tuple, kernels: list, key: str, tag: str,
             krec[key] = r
     print(f"{tag} {name} on {what} (B={got.shape[0]}, {r['slots']} slots, "
           f"lane fill {r['lane_fill']:.3f}, unpruned {r['unpruned']:.3f} of "
-          f"filled): torch.equal to plain; kernel {r['ms']:.4f} ms, plain "
+          f"filled): torch.equal to plain, bin minima too; kernel "
+          f"{r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
           f"{r['bound_by']}", flush=True)
 

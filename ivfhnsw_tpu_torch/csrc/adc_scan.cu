@@ -17,6 +17,12 @@
 //                             with r = start[b,s] + l              if l < len[b,s]
 //                         = +inf                                   otherwise
 //
+//    Given a bins pointer it also writes bins[b, j] = min of out[b, 32j ..
+//    32j+31] (wide_scan.cuh's BINS), the first pass of the engine's bin-32
+//    top-k: folded from the values in registers as they are stored, where a
+//    reduction of its own re-read the whole padded output (on an H100 it
+//    took more time than the scan that wrote it; PERF.md).
+//
 // 2. The min scan replaces the two phase-1 kernels of the JAX package's
 //    exact two-phase top-k (proof at adc_scan.py:529-536):
 //      K3  ivfhnsw_tpu/ops/pallas/adc_scan.py:545  _adc_kernel_min       (per-chunk minima)
@@ -137,17 +143,29 @@ namespace {
 // PERF.md): a warp a slot below WARP_GRAN_BELOW codes (step "warp"), the
 // first port's block a slot at and above it (step "dp4a"), where the
 // output bounds the kernel. Both stream their stores and take one IDP.4A
-// a lookup and TMA staging.
+// a lookup and TMA staging. Each is built twice: BINS also writes the
+// bin-32 minima of the output (wide_scan.cuh), which the launcher asks
+// for when the caller passes a bins pointer.
 constexpr int WARP_GRAN_BELOW = 1024;
+using WideKernel = void (*)(wide_scan::Params);
+template <bool BINS>
 __global__ void __launch_bounds__(wide_scan::THREADS, 8)
 adc_scan_slots_kernel_warp(wide_scan::Params p) {
   wide_scan::body<min_scan::ADDR_DP4A, true, min_scan::STAGE_TMA,
-                  wide_scan::OUT_STREAM, wide_scan::FULL>(p, 0u);
+                  wide_scan::OUT_STREAM, wide_scan::FULL, BINS>(p, 0u);
 }
+template <bool BINS>
 __global__ void __launch_bounds__(wide_scan::THREADS, 8)
 adc_scan_slots_kernel_block(wide_scan::Params p) {
   wide_scan::body<min_scan::ADDR_DP4A, false, min_scan::STAGE_TMA,
-                  wide_scan::OUT_STREAM, wide_scan::FULL>(p, 0u);
+                  wide_scan::OUT_STREAM, wide_scan::FULL, BINS>(p, 0u);
+}
+
+// The production wide kernel for slot width gran.
+template <bool BINS>
+WideKernel wide_kernel(int gran) {
+  return gran < WARP_GRAN_BELOW ? adc_scan_slots_kernel_warp<BINS>
+                                : adc_scan_slots_kernel_block<BINS>;
 }
 
 // The production min scan: min_scan.cuh's body at the setting of its
@@ -178,14 +196,20 @@ int use_vec16(int M, const void* codes) {
 // CUDA error code of the launch (cudaGetLastError right after it); the
 // kernel's own faults surface at the caller's next synchronisation.
 
+// ivf_adc_scan_slots writes the bin-32 minima [B, nslots*gran/32] to bins
+// as well when bins is not null (gran % 32 == 0).
 extern "C" int ivf_adc_scan_slots(const void* lut, const void* norm_tab,
                                   const void* codes, const void* norm_codes,
                                   const void* start, const void* len,
-                                  const void* bias, void* out, int B,
-                                  int nslots, int M, int gran, void* stream) {
+                                  const void* bias, void* out, void* bins,
+                                  int B, int nslots, int M, int gran,
+                                  void* stream) {
   if (B == 0 || nslots == 0 || gran == 0) return 0;
-  auto* kernel = gran < WARP_GRAN_BELOW ? adc_scan_slots_kernel_warp
-                                        : adc_scan_slots_kernel_block;
+  if (bins != nullptr && gran % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* kernel =
+      bins != nullptr ? wide_kernel<true>(gran) : wide_kernel<false>(gran);
   const size_t smem = min_scan::smem_bytes(M);
   if (const int e = set_smem(kernel, smem)) return e;
   const wide_scan::Params p{static_cast<const float*>(lut),
@@ -199,7 +223,8 @@ extern "C" int ivf_adc_scan_slots(const void* lut, const void* norm_tab,
                             nslots,
                             M,
                             gran,
-                            use_vec16(M, codes)};
+                            use_vec16(M, codes),
+                            static_cast<float*>(bins)};
   kernel<<<B, wide_scan::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p);
   return static_cast<int>(cudaGetLastError());

@@ -69,6 +69,17 @@
 //           starts TMA bulk copies (cp.async.bulk, shared to global) from an
 //           8 KB buffer of +inf in shared memory, so the fill costs the SM
 //           one instruction per 8 KB instead of one per 16 bytes.
+//   BINS    (the engine's second instantiation) also writes bins [B,
+//           S*gran/32], bins[b, s*gran/32 + j] = the minimum of lanes
+//           32j .. 32j+31 of slot s, which the bin-32 top-k selects bins
+//           by. Thread t owns lanes t + 256i, so a warp's 32 lanes of one
+//           step are one bin: folded by a __shfl_xor_sync tree of fminf,
+//           stored by lane 0 with the lanes' policy. With FILL the lane
+//           loop then runs to the length rounded up to 32 lanes (not 4), so
+//           every warp that folds a bin has all its lanes; the bins of the
+//           fill past it and of empty slots are +inf. Needs gran % 32 == 0.
+//           No lane is NaN (above), so the minima equal an amin over the
+//           stored lanes bit for bit.
 
 #pragma once
 
@@ -152,7 +163,8 @@ __device__ __forceinline__ void fill_bulk(float* o, int64_t n,
   }
 }
 
-template <bool FILL, bool STREAM, bool SKIP, bool STAGE, bool BULK>
+template <bool FILL, bool STREAM, bool SKIP, bool STAGE, bool BULK,
+          bool BINS>
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(const float* __restrict__ lut,           // [B, M, 256]
             const float* __restrict__ norm_tab,      // [256]
@@ -165,6 +177,7 @@ scan_kernel(const float* __restrict__ lut,           // [B, M, 256]
             const float* __restrict__ bias,          // [B, S]
             const int32_t* __restrict__ seg,         // [B, S]
             float* __restrict__ out,                 // [B, S*gran]
+            float* __restrict__ bins,                // [B, S*gran/32] (BINS)
             int nslots, int M, int gran, int ntab, int nsubc, int vec16) {
   extern __shared__ __align__(16) float smem[];
   float* s_lut = smem;                   // M * 256
@@ -214,9 +227,12 @@ scan_kernel(const float* __restrict__ lut,           // [B, M, 256]
   __syncthreads();
 
   float* out_b = out + sb * gran;
+  const int gb = gran >> 5;  // bins a slot (BINS)
+  float* bins_b = BINS ? bins + sb * gb : nullptr;
   for (int s = 0; s < nslots; ++s) {
     const int ln = min(q_len[s], gran);
     float* o = out_b + static_cast<int64_t>(s) * gran;
+    float* ob = bins_b + static_cast<int64_t>(s) * gb;
     if (FILL && ln <= 0) {  // this slot and the empty ones after it, in one fill
       int e = s + 1;
       while (e < nslots && q_len[e] <= 0) ++e;
@@ -226,6 +242,7 @@ scan_kernel(const float* __restrict__ lut,           // [B, M, 256]
       } else {
         scan_common::fill_inf<STREAM>(o, n);
       }
+      if (BINS) scan_common::fill_inf<STREAM>(ob, (e - s) * gb);
       s = e - 1;
       continue;
     }
@@ -233,32 +250,43 @@ scan_kernel(const float* __restrict__ lut,           // [B, M, 256]
     const float bs = q_bias[s];
     const float* t2s = s_t2 + q_seg[s] * nsubc;
     // Lanes that take the lane loop: all of them, or with FILL the filled
-    // ones rounded up to the 4 lanes of a 16-byte store.
-    const int hi = FILL ? min(gran, (ln + 3) & ~3) : gran;
+    // ones rounded up to the 4 lanes of a 16-byte store (with BINS, to the
+    // 32 lanes of a bin).
+    const int hi =
+        FILL ? min(gran, BINS ? (ln + 31) & ~31 : (ln + 3) & ~3) : gran;
     for (int l = threadIdx.x; l < hi; l += blockDim.x) {
       const float v =
           l < ln ? lane_value<SKIP>(s_lut, s_norm, t2s, codes, norm_codes,
                                     subc, st + l, bs, M, vec16)
                  : INFINITY;
       scan_common::store_out<STREAM, float>(o + l, v);
+      if (BINS) scan_common::store_bin<STREAM>(ob, l, v);
     }
     if (FILL) scan_common::fill_inf<STREAM>(o + hi, gran - hi);
+    if (FILL && BINS) {
+      scan_common::fill_inf<STREAM>(ob + (hi >> 5), gb - (hi >> 5));
+    }
   }
   if (BULK && threadIdx.x == 0) {
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
-// Launches one instantiation on `stream`. Returns 0 or the CUDA error code
-// of the launch (cudaGetLastError right after it); the kernel's own faults
-// surface at the caller's next synchronisation.
-template <bool FILL, bool STREAM, bool SKIP, bool STAGE, bool BULK>
+// Launches one instantiation on `stream`; with BINS, bins is its bin
+// minima's output (gran % 32 == 0). Returns 0 or the CUDA error code of the
+// launch (cudaGetLastError right after it); the kernel's own faults surface
+// at the caller's next synchronisation.
+template <bool FILL, bool STREAM, bool SKIP, bool STAGE, bool BULK,
+          bool BINS = false>
 int launch(const void* lut, const void* norm_tab, const void* t2,
            const void* codes, const void* norm_codes, const void* subc,
            const void* start, const void* len, const void* bias,
            const void* seg, void* out, int B, int nslots, int M, int gran,
-           int P, int nsubc, void* stream) {
+           int P, int nsubc, void* stream, void* bins = nullptr) {
   if (B == 0 || nslots == 0 || gran == 0) return 0;
+  if (BINS && (bins == nullptr || gran % 32 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int ntab = P * nsubc;
   size_t smem =
       (static_cast<size_t>(M + 1) * KSUB + static_cast<size_t>(ntab)) *
@@ -267,7 +295,7 @@ int launch(const void* lut, const void* norm_tab, const void* t2,
     smem = static_cast<size_t>(table_floats(M, ntab)) * sizeof(float) +
            static_cast<size_t>(nslots) * 20;
   }
-  auto kernel = scan_kernel<FILL, STREAM, SKIP, STAGE, BULK>;
+  auto kernel = scan_kernel<FILL, STREAM, SKIP, STAGE, BULK, BINS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -282,8 +310,8 @@ int launch(const void* lut, const void* norm_tab, const void* t2,
       static_cast<const uint8_t*>(norm_codes),
       static_cast<const uint8_t*>(subc), static_cast<const int64_t*>(start),
       static_cast<const int32_t*>(len), static_cast<const float*>(bias),
-      static_cast<const int32_t*>(seg), static_cast<float*>(out), nslots, M,
-      gran, ntab, nsubc, vec16);
+      static_cast<const int32_t*>(seg), static_cast<float*>(out),
+      static_cast<float*>(bins), nslots, M, gran, ntab, nsubc, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

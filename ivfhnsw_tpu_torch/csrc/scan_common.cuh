@@ -1,5 +1,5 @@
 // Device helpers shared by the scan kernels of this directory (adc_scan.cu,
-// grouping_scan.cuh). ops/cuda/build.py hashes every header
+// wide_scan.cuh, grouping_scan.cuh). ops/cuda/build.py hashes every header
 // here into each library's name, so an edit rebuilds them all.
 
 #pragma once
@@ -38,6 +38,19 @@ __device__ __forceinline__ void fill_inf(float* o, int64_t n) {
       store_out<STREAM, float>(o + i, INFINITY);
     }
   }
+}
+
+// One bin of the scan output's bin-32 minima: the calling warp's 32 lanes
+// hold lanes l & ~31 .. l | 31 of a row (all 32 call, each with its lane l
+// and value v); their minimum, folded by a __shfl_xor_sync tree of fminf,
+// goes to ob[l / 32], stored by lane 0.
+template <bool STREAM = true>
+__device__ __forceinline__ void store_bin(float* ob, int l, float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  if ((threadIdx.x & 31) == 0) store_out<STREAM, float>(ob + (l >> 5), v);
 }
 
 }  // namespace scan_common

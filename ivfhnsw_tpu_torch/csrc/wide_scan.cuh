@@ -47,6 +47,16 @@
 //           hoist the lookups), output written; LOADS: the code reads
 //           without the lookups, each valid lane holding
 //           (w0 ^ w1 ^ w2 ^ w3 ^ norm_code) & 0xffffff as f32.
+//   BINS    (FULL only; the production kernels' second instantiation)
+//           also bins[b, s*gran/32 + j] = min of lanes 32j .. 32j+31 of
+//           the slot, the minima the bin-32 top-k selects bins by. Both
+//           layouts give one warp 32 consecutive lanes of a slot at a time
+//           (lane x of a warp a slot, thread t + 256i of a block a slot),
+//           so a bin is one warp's values of one step: folded by a
+//           __shfl_xor_sync tree of fminf and stored by lane 0, with the
+//           lanes' policy; an empty slot's bins are +inf. Needs gran % 32
+//           == 0. The lanes are never NaN, so the minima equal an amin over
+//           the stored lanes bit for bit.
 // COMPUTE and LOADS need 16-byte code rows (M = 16 on a 16-byte aligned
 // store).
 
@@ -80,6 +90,7 @@ struct Params {
   int M;
   int gran;
   int vec16;                  // M == 16 and codes 16-byte aligned
+  float* bins = nullptr;      // [B, S*gran/32] (BINS)
 };
 
 // ---- one lane --------------------------------------------------------------
@@ -146,17 +157,23 @@ __device__ __forceinline__ void emit(Lane& x, float* o, int l, float v) {
 // ---- one query ----------------------------------------------------------------
 
 // Every slot of query b, the query's tables staged.
-template <int ADDR, bool WARP, int OUT, int MODE, bool V16>
+template <int ADDR, bool WARP, int OUT, int MODE, bool V16, bool BINS>
 __device__ __forceinline__ void query(const Params& p, Lane& x, int64_t b) {
   const int gran = p.gran, S = p.nslots, M = p.M;
+  const int gb = gran >> 5;  // bins a slot (BINS)
   const int64_t sb = b * S;
   float* out_b = p.out + sb * gran;
+  float* bins_b = BINS ? p.bins + sb * gb : nullptr;
   if (WARP) {
     for (int s = threadIdx.x >> 5; s < S; s += NWARPS) {
       const int ln = min(p.len[sb + s], gran);  // warp-uniform
       float* o = out_b + static_cast<int64_t>(s) * gran;
+      float* ob = bins_b + static_cast<int64_t>(s) * gb;
       if (ln <= 0) {
         if (MODE == NOOUT) continue;
+        if (BINS) {
+          for (int j = x.lane; j < gb; j += 32) put<OUT>(ob + j, INFINITY);
+        }
         if (OUT == OUT_STREAM && (gran & 3) == 0) {
           const float4 inf4 =
               make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
@@ -173,21 +190,24 @@ __device__ __forceinline__ void query(const Params& p, Lane& x, int64_t b) {
       const uint8_t* cb = p.codes + st * M;
       const uint8_t* nb = p.norm_codes + st;
       for (int l = x.lane; l < gran; l += 32) {
-        emit<OUT, MODE>(
-            x, o, l,
+        const float v =
             l < ln ? lane_value<ADDR, MODE, V16>(p, x, cb, nb, l, bs)
-                   : INFINITY);
+                   : INFINITY;
+        emit<OUT, MODE>(x, o, l, v);
+        if (BINS) scan_common::store_bin<OUT == OUT_STREAM>(ob, l, v);
       }
     }
   } else {
     for (int s = 0; s < S; ++s) {
       const int ln = p.len[sb + s];
       float* o = out_b + static_cast<int64_t>(s) * gran;
+      float* ob = bins_b + static_cast<int64_t>(s) * gb;
       if (ln <= 0 && MODE == NOOUT) continue;
       if (ln <= 0 && OUT == OUT_STREAM) {  // this and the empty ones after
         int e = s + 1;
         while (e < S && p.len[sb + e] <= 0) ++e;
         scan_common::fill_inf(o, static_cast<int64_t>(e - s) * gran);
+        if (BINS) scan_common::fill_inf(ob, static_cast<int64_t>(e - s) * gb);
         s = e - 1;
         continue;
       }
@@ -196,10 +216,11 @@ __device__ __forceinline__ void query(const Params& p, Lane& x, int64_t b) {
       const uint8_t* cb = p.codes + st * M;
       const uint8_t* nb = p.norm_codes + st;
       for (int l = threadIdx.x; l < gran; l += THREADS) {
-        emit<OUT, MODE>(
-            x, o, l,
+        const float v =
             l < ln ? lane_value<ADDR, MODE, V16>(p, x, cb, nb, l, bs)
-                   : INFINITY);
+                   : INFINITY;
+        emit<OUT, MODE>(x, o, l, v);
+        if (BINS) scan_common::store_bin<OUT == OUT_STREAM>(ob, l, v);
       }
     }
   }
@@ -210,8 +231,9 @@ __device__ __forceinline__ void query(const Params& p, Lane& x, int64_t b) {
 
 // The kernel body at one setting of the switches; zero is 0 (COMPUTE's
 // perturbation mask: the production kernels pass the constant).
-template <int ADDR, bool WARP, int STAGE, int OUT, int MODE>
+template <int ADDR, bool WARP, int STAGE, int OUT, int MODE, bool BINS = false>
 __device__ __forceinline__ void body(const Params& p, uint32_t zero) {
+  static_assert(!BINS || MODE == FULL, "bin minima of the full scan only");
   const int M = p.M;
   const int64_t b = blockIdx.x;
   float* s_lut = min_scan::min_scan_smem;
@@ -232,9 +254,9 @@ __device__ __forceinline__ void body(const Params& p, uint32_t zero) {
   }
   // each code path a loop of its own
   if (p.vec16) {
-    query<ADDR, WARP, OUT, MODE, true>(p, x, b);
+    query<ADDR, WARP, OUT, MODE, true, BINS>(p, x, b);
   } else {
-    query<ADDR, WARP, OUT, MODE, false>(p, x, b);
+    query<ADDR, WARP, OUT, MODE, false, BINS>(p, x, b);
   }
 }
 

@@ -13,8 +13,9 @@ The steps:
 3. the ``max_codes`` slot schedule (:func:`probe_schedule`, counterpart of
    ``_probe_schedule_fields``) at ``gran`` = 256 (chunk) or 1024 (quad);
 4. the scan, :func:`adc_scan_slots` — the kernel on CUDA tensors, its plain
-   version :func:`adc_scan_slots_plain` on CPU tensors;
-5. bin-32 top-k;
+   version :func:`adc_scan_slots_plain` on CPU tensors — which also gives
+   each 32-lane bin's minimum;
+5. bin-32 top-k over those minima;
 6. id resolution.
 
 With ``two_phase=True`` (the JAX ``scan_topk="twophase"`` engine,
@@ -147,29 +148,45 @@ def adc_scan_slots_plain(lut: torch.Tensor, norm_tab: torch.Tensor,
     return torch.where(valid.reshape(B, S * gran), acc, float("inf"))
 
 
+# Whether each entry point of csrc/adc_scan.cu takes a bin-minima pointer
+# after its output.
+_TAKES_BINS = {"ivf_adc_scan_slots": True, "ivf_adc_scan_slots_min": False}
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     """The C entry point ``name`` of ``csrc/adc_scan.cu`` (built at first
-    use): 8 pointers, B, nslots, M, gran, the stream; returns a CUDA error
-    code."""
+    use): 8 pointers (the seven scan tensors, the output), a ninth for the
+    bin minima where ``_TAKES_BINS`` says so, B, nslots, M, gran, the
+    stream; returns a CUDA error code."""
     from ivfhnsw_tpu_torch.ops.cuda.build import load_library
     fn = getattr(load_library("adc_scan"), name)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (8 + _TAKES_BINS[name]) + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def bin_minima(out: torch.Tensor) -> torch.Tensor:
+    """The minimum of each 32-lane bin of scan output ``out`` [B, n]:
+    [B, n / 32] f32, the definition of the scan kernels' bin minima."""
+    return out.view(out.shape[0], -1, 32).amin(dim=-1)
 
 
 def _scan(wrapper, plain, out_cols: int, lut: torch.Tensor,
           norm_tab: torch.Tensor, codes: torch.Tensor,
           norm_codes: torch.Tensor, start: torch.Tensor,
           length: torch.Tensor, bias: torch.Tensor,
-          gran: int) -> torch.Tensor:
+          gran: int, bins: bool = False):
     """Check the arguments of scan wrapper ``wrapper``, then run ``plain``
     on CPU tensors, or on CUDA tensors launch the entry point ``ivf_`` +
     its name into a new [B, out_cols] f32 output (raising if the launch
-    fails) and count the launch in ``wrapper.launches``."""
+    fails) and count the launch in ``wrapper.launches``. With ``bins``
+    (only adc_scan_slots passes it) it also writes :func:`bin_minima`
+    into a new [B, out_cols / 32] f32 tensor and returns (output, bin
+    minima)."""
     fn = wrapper.__name__
+    name = f"ivf_{fn}"
     B, S = start.shape
     N, M = codes.shape
     dev = lut.device
@@ -183,28 +200,38 @@ def _scan(wrapper, plain, out_cols: int, lut: torch.Tensor,
     if gran <= 0 or max(B, S, M, gran) >= 2 ** 31:
         raise ValueError(f"{fn}: unsupported sizes B={B} S={S} M={M} "
                          f"gran={gran}")
+    if bins and gran % 32:
+        raise ValueError(f"{fn}: bin minima need gran % 32 == 0, got "
+                         f"gran={gran}")
     args = (lut, norm_tab, codes, norm_codes, start, length, bias)
     if dev.type == "cpu":
-        return plain(*args, gran)
+        out = plain(*args, gran)
+        return (out, bin_minima(out)) if bins else out
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {dev}")
     out = torch.empty((B, out_cols), dtype=torch.float32, device=dev)
+    bmin = (torch.empty((B, out_cols // 32), dtype=torch.float32, device=dev)
+            if bins else None)
+    ptrs = [t.data_ptr() for t in (*args, out)]
+    if _TAKES_BINS[name]:
+        ptrs.append(None if bmin is None else bmin.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _entry(f"ivf_{fn}")(*(t.data_ptr() for t in args),
-                                 out.data_ptr(), B, S, M, gran, stream)
+        rc = _entry(name)(*ptrs, B, S, M, gran, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     wrapper.launches += 1
-    return out
+    return (out, bmin) if bins else out
 
 
 def adc_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
                    codes: torch.Tensor, norm_codes: torch.Tensor,
                    start: torch.Tensor, length: torch.Tensor,
-                   bias: torch.Tensor, gran: int) -> torch.Tensor:
+                   bias: torch.Tensor, gran: int, bins: bool = False):
     """The scan: [B, nslots*gran] f32 distances (see
-    :func:`adc_scan_slots_plain` for the function).
+    :func:`adc_scan_slots_plain` for the function). With ``bins``
+    (gran % 32 == 0) returns (distances, their :func:`bin_minima`
+    [B, nslots*gran/32]), the kernel writing both in one pass.
 
     lut [B, M, 256] f32; norm_tab [256] f32; codes [N, M] u8; norm_codes
     [N] u8; start [B, S] int64; length [B, S] int32; bias [B, S] f32.
@@ -216,7 +243,7 @@ def adc_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
     with span("ivf.scan"):
         return _scan(adc_scan_slots, adc_scan_slots_plain,
                      start.shape[1] * gran, lut, norm_tab, codes, norm_codes,
-                     start, length, bias, gran)
+                     start, length, bias, gran, bins)
 
 
 adc_scan_slots.launches = 0
@@ -336,19 +363,23 @@ def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
 def scan_topk(args: tuple, ids: torch.Tensor, k: int, gran: int,
               two_phase: bool = False):
     """Steps 4-6 of :func:`search_core` over :func:`scan_inputs`' ``args``:
-    the wide scan + bin-32 top-k, or :func:`two_phase_topk`."""
+    the wide scan with its bin minima + bin-32 top-k (gran % 32 == 0), or
+    :func:`two_phase_topk`."""
     if two_phase:
         return two_phase_topk(*args, ids, k, gran)
-    return topk_labels(adc_scan_slots(*args, gran), args[4], ids, k, gran)
+    dists, bmin = adc_scan_slots(*args, gran, bins=True)
+    return topk_labels(dists, args[4], ids, k, gran, bmin)
 
 
 def topk_labels(dists: torch.Tensor, start: torch.Tensor, ids: torch.Tensor,
-                k: int, gran: int):
+                k: int, gran: int, bins: torch.Tensor | None = None):
     """Bin-32 top-k of the scan output [B, nslots*gran] and id resolution
-    through the slots' start rows. Returns (dists [B, k] ascending,
-    labels [B, k] int64, -1 where the distance is +inf)."""
+    through the slots' start rows. ``bins``, the output's
+    :func:`bin_minima` as the scan kernel wrote them, spares the top-k its
+    own reduction. Returns (dists [B, k] ascending, labels [B, k] int64,
+    -1 where the distance is +inf)."""
     with span("ivf.topk"):
-        best, sel = binned_topk_smallest(dists, k, bin_size=32)
+        best, sel = binned_topk_smallest(dists, k, bin_size=32, bmin=bins)
         return best, slot_labels(best, sel, start, ids, gran)
 
 

@@ -93,6 +93,8 @@ def grouping_lab_scan(variant: str, lut: torch.Tensor, norm_tab: torch.Tensor,
         fn, *args, gran, extra_smem=extra_smem_bytes(variant, start.shape[1]))
     if lut.device.type == "cpu":
         return gs.grouping_scan_slots_plain(*args, gran)
-    out = gs.launch_scan(fn, _entry(), args, gran, dims, VARIANTS[variant])
+    out = torch.empty((dims[0], dims[1] * gran), dtype=torch.float32,
+                      device=lut.device)
+    gs.launch_scan(fn, _entry(), args, (out,), dims, gran, VARIANTS[variant])
     LAUNCHES[variant] += 1
     return out

@@ -14,8 +14,9 @@ grouping_pallas_search_core`` (exact coarse only), as :func:`scan_inputs`
    ``_grouping_schedule``) at ``gran`` = 256 or 1024 codes;
 4. LUTs from the (OPQ-rotated) queries;
 5. the scan, :func:`grouping_scan_slots` — the kernel on CUDA tensors, its
-   plain version :func:`grouping_scan_slots_plain` on CPU tensors;
-6. bin-32 top-k and id resolution.
+   plain version :func:`grouping_scan_slots_plain` on CPU tensors — with
+   each 32-lane bin's minimum;
+6. bin-32 top-k over those minima and id resolution.
 
 Only step 5 is a kernel; the rest is plain torch, as the JAX package left it
 to XLA. The TPU's group-aligned tiles (subcentroid ids in tile row 17 or
@@ -31,8 +32,9 @@ import functools
 
 import torch
 
-from ivfhnsw_tpu_torch.ops.cuda.adc_scan import (KSUB, _check, build_luts,
-                                                 slot_schedule, topk_labels)
+from ivfhnsw_tpu_torch.ops.cuda.adc_scan import (KSUB, _check, bin_minima,
+                                                 build_luts, slot_schedule,
+                                                 topk_labels)
 from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
 from ivfhnsw_tpu_torch.ops.grouping import probe_budget, query_terms
 from ivfhnsw_tpu_torch.utils.profiling import span
@@ -95,7 +97,7 @@ def grouping_scan_slots_plain(lut: torch.Tensor, norm_tab: torch.Tensor,
 def _kernel():
     from ivfhnsw_tpu_torch.ops.cuda.build import load_library
     fn = load_library("grouping_scan").ivf_grouping_scan_slots
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -143,22 +145,21 @@ def check_scan_args(fn: str, lut: torch.Tensor, norm_tab: torch.Tensor,
     return B, S, M, P, nsubc
 
 
-def launch_scan(fn: str, entry, args: tuple, gran: int, dims: tuple,
-                *tail: int) -> torch.Tensor:
-    """Launch C entry point ``entry`` (the ten scan tensors, the output, B,
-    S, M, gran, P, nsubc, ``tail``, the stream) on the current stream of
-    the tensors' CUDA device into a new [B, S*gran] f32 output; raises if
-    the launch fails."""
+def launch_scan(fn: str, entry, args: tuple, outs: tuple, dims: tuple,
+                gran: int, *tail: int) -> None:
+    """Launch C entry point ``entry`` (the ten scan tensors ``args``, the
+    output tensors ``outs`` with None passed as null, B, S, M, gran, P,
+    nsubc, ``tail``, the stream) on the current stream of the tensors'
+    CUDA device; raises if the launch fails."""
     B, S, M, P, nsubc = dims
     dev = args[0].device
-    out = torch.empty((B, S * gran), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(*(t.data_ptr() for t in args), out.data_ptr(), B, S, M,
-                   gran, P, nsubc, *tail, stream)
+        rc = entry(*(t.data_ptr() for t in args),
+                   *(None if t is None else t.data_ptr() for t in outs),
+                   B, S, M, gran, P, nsubc, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
-    return out
 
 
 def grouping_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
@@ -166,9 +167,11 @@ def grouping_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
                         norm_codes: torch.Tensor, subc: torch.Tensor,
                         start: torch.Tensor, length: torch.Tensor,
                         bias: torch.Tensor, seg: torch.Tensor,
-                        gran: int) -> torch.Tensor:
+                        gran: int, bins: bool = False):
     """The grouping scan: [B, nslots*gran] f32 distances (see
-    :func:`grouping_scan_slots_plain` for the function).
+    :func:`grouping_scan_slots_plain` for the function). With ``bins``
+    (gran % 32 == 0) returns (distances, their ``adc_scan.bin_minima``
+    [B, nslots*gran/32]), the kernel writing both in one pass.
 
     lut [B, M, 256] f32; norm_tab [256] f32; t2 [B, P, nsubc] f32; codes
     [N, M] u8; norm_codes, subc [N] u8; start [B, S] int64; length, seg
@@ -183,11 +186,20 @@ def grouping_scan_slots(lut: torch.Tensor, norm_tab: torch.Tensor,
             seg)
     with span("ivf.scan"):
         dims = check_scan_args(fn, *args, gran)
+        if bins and gran % 32:
+            raise ValueError(f"{fn}: bin minima need gran % 32 == 0, got "
+                             f"gran={gran}")
         if lut.device.type == "cpu":
-            return grouping_scan_slots_plain(*args, gran)
-        out = launch_scan(fn, _kernel(), args, gran, dims)
+            out = grouping_scan_slots_plain(*args, gran)
+            return (out, bin_minima(out)) if bins else out
+        B, S = dims[:2]
+        out = torch.empty((B, S * gran), dtype=torch.float32,
+                          device=lut.device)
+        bmin = (torch.empty((B, S * gran // 32), dtype=torch.float32,
+                            device=lut.device) if bins else None)
+        launch_scan(fn, _kernel(), args, (out, bmin), dims, gran)
     grouping_scan_slots.launches += 1
-    return out
+    return (out, bmin) if bins else out
 
 
 grouping_scan_slots.launches = 0
@@ -232,8 +244,9 @@ def scan_inputs(queries: torch.Tensor, centroids: torch.Tensor,
 
 
 def scan_topk(args: tuple, ids: torch.Tensor, k: int, gran: int):
-    """Steps 5-6 over :func:`scan_inputs`' scan inputs ``args``: the scan, the bin-32
-    top-k and id resolution. Returns (dists [B, k] f32 ascending, labels
-    [B, k] int64, -1 where the distance is +inf)."""
-    return topk_labels(grouping_scan_slots(*args, gran), args[6], ids, k,
-                       gran)
+    """Steps 5-6 over :func:`scan_inputs`' scan inputs ``args``: the scan
+    with its bin minima, the bin-32 top-k over them (gran % 32 == 0) and id
+    resolution. Returns (dists [B, k] f32 ascending, labels [B, k] int64,
+    -1 where the distance is +inf)."""
+    dists, bmin = grouping_scan_slots(*args, gran, bins=True)
+    return topk_labels(dists, args[6], ids, k, gran, bmin)

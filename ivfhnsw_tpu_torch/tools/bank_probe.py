@@ -29,7 +29,7 @@ bank conflicts of its lookups; one whose layout keeps the lanes of a warp
 in different banks whatever the codes takes the same time on all three.
 ``new`` are ``adc_scan_slots`` / ``adc_scan_slots_min`` (``csrc/adc_scan.cu``:
 a row-major LUT; the wide kernel with streaming stores and one fill per run
-of empty slots), ``direct`` the lab's ``direct*`` variants
+of empty slots, writing the bin minima as the search asks of it), ``direct`` the lab's ``direct*`` variants
 (``csrc/scan_lab.cu``: those kernels as first ported) and ``skew`` its
 ``skew*`` variants (a bank-skewed LUT: the lanes of a warp in 32 different
 banks). Each
@@ -81,7 +81,7 @@ def probe_kernels(gran: int, which=WHICH) -> list:
     out = []
     if "new" in which:
         out += [(f"adc_scan_slots_gran{gran}",
-                 lambda a: tk.adc_scan_slots(*a, gran),
+                 lambda a: tk.adc_scan_slots(*a, gran, bins=True)[0],
                  lambda a: tk.adc_scan_slots_plain(*a, gran)),
                 (f"adc_scan_slots_min_gran{gran}",
                  lambda a: tk.adc_scan_slots_min(*a, gran),

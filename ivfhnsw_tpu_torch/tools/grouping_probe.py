@@ -41,9 +41,10 @@ BASELINE = "direct"
 
 
 def probe_kernels() -> dict:
-    """name -> fn(args, gran) of the probed kernels: the engine's, then
-    the lab's variants."""
-    out = {ENGINE: lambda a, g: gs.grouping_scan_slots(*a, g)}
+    """name -> fn(args, gran) of the probed kernels: the engine's (with
+    the bin minima the search asks of it; its lanes returned), then the
+    lab's variants."""
+    out = {ENGINE: lambda a, g: gs.grouping_scan_slots(*a, g, bins=True)[0]}
     for name in gl.VARIANTS:
         out[f"lab_{name}"] = (
             lambda a, g, name=name: gl.grouping_lab_scan(name, *a, g))

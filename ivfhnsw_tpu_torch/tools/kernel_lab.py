@@ -157,7 +157,7 @@ def run(index: IVFADCIndex, queries: np.ndarray, params: SearchParams,
         args = index.scan_inputs(q, params, gran)
         B, S = args[4].shape
         chunks = float(((args[5].long() + CHUNK - 1) // CHUNK).sum()) / B
-        production = {"wide": adc_scan_slots(*args, gran),
+        production = {"wide": adc_scan_slots(*args, gran, bins=True)[0],
                       "min": adc_scan_slots_min(*args, gran)}
         plain_runs = {}
         smem = {}

@@ -66,8 +66,10 @@ SPLIT = (("stores", "real"), ("noout", "real"), ("comp", "real"),
 
 def probe_kernels(steps) -> dict:
     """name -> (fn(args, gran), WideStep or None): the production kernel
-    and the given steps."""
-    out = {PRODUCTION: (lambda a, g: tk.adc_scan_slots(*a, g), None)}
+    (with the bin minima the search asks of it; its lanes returned) and
+    the given steps."""
+    out = {PRODUCTION: (lambda a, g: tk.adc_scan_slots(*a, g, bins=True)[0],
+                        None)}
     for s in steps:
         out[s.name] = (lambda a, g, s=s: sl.scan_wide_step(*a, g, s), s)
     return out
@@ -134,7 +136,8 @@ def run(index, queries: np.ndarray, params, device, batch: int = 8192,
         for store in stores:
             a = (*args[:2], *every[store], *args[4:])
             bnd = scan_bound(a, B * S * gran, M + 1, M + 1)
-            prod = tk.adc_scan_slots(*a, gran)
+            prod_bnd = scan_bound(a, B * S * gran, M + 1, M + 1, bins=True)
+            prod = kernels[PRODUCTION][0](a, gran)
             plains, plain_ms = {}, {}
             fa = kernels[BASELINE][0]
             for name, (fn, st) in kernels.items():
@@ -158,7 +161,8 @@ def run(index, queries: np.ndarray, params, device, batch: int = 8192,
                 del out
                 rec = {"name": name, "gran": gran, "store": store, "B": B,
                        "slots": S, "lane_fill": fill, "equal_plain": equal,
-                       "max_abs_err": err, "plain_ms": plain_ms[key], **bnd,
+                       "max_abs_err": err, "plain_ms": plain_ms[key],
+                       **(prod_bnd if name == PRODUCTION else bnd),
                        "mode": "full" if st is None else st.mode,
                        "timer": "cuda_events" if on_card else "host"}
                 if name == BASELINE:

@@ -64,18 +64,19 @@ def rows_touched(start: torch.Tensor, length: torch.Tensor, n: int) -> int:
 
 
 def scan_bound(args, out_numel: int, row_bytes: int, ops_per_lane: int,
-               extra_bytes: int = 0, lookups_per_lane: int | None = None
-               ) -> dict:
+               extra_bytes: int = 0, lookups_per_lane: int | None = None,
+               bins: bool = False) -> dict:
     """bound() of an ADC scan over ``args`` (lut, norm_tab, codes,
     norm_codes, start, length, bias, ...): LUTs, norm table and schedule
-    read once, ``row_bytes`` per touched store row, the f32 output written
-    once; ``ops_per_lane`` f32 operations per valid lane. Also
+    read once, ``row_bytes`` per touched store row, the f32 output (with
+    ``bins`` its f32 bin-32 minima too) written once; ``ops_per_lane`` f32
+    operations per valid lane. Also
     ``lookup_ms`` (:func:`lookup_ms`) of ``lookups_per_lane`` table lookups
     per valid lane (default M + 1: the LUT rows and the norm table)."""
     lut, ntab, codes, _, start, length = args[:6]
     nbytes = (lut.numel() * 4 + ntab.numel() * 4 + start.numel() * 16
               + rows_touched(start, length, codes.shape[0]) * row_bytes
-              + out_numel * 4 + extra_bytes)
+              + out_numel * 4 + extra_bytes + bins * out_numel // 8)
     valid = int(length.sum())
     if lookups_per_lane is None:
         lookups_per_lane = codes.shape[1] + 1
@@ -83,14 +84,16 @@ def scan_bound(args, out_numel: int, row_bytes: int, ops_per_lane: int,
             "lookup_ms": lookup_ms(valid * lookups_per_lane, lut.device)}
 
 
-def grouping_scan_bound(args, out: torch.Tensor, gran: int) -> dict:
+def grouping_scan_bound(args, out: torch.Tensor, gran: int,
+                        bins: bool = False) -> dict:
     """bound() of a grouping scan over ``args`` (lut, norm_tab, t2, codes,
     norm_codes, subc, start, length, bias, seg) whose output is ``out``
     [B, S*gran], counting what any implementation of the function must
     move and do: the LUTs, norm table, term2 tables and schedule (20 B a
     slot) read once; of the store, one ``subc`` byte per touched row, and
     the M + 1 code and norm bytes only of rows that are kept (finite in
-    ``out``) for at least one query; the f32 output written once; M + 2
+    ``out``) for at least one query; the f32 output (with ``bins`` its
+    f32 bin-32 minima too) written once; M + 2
     f32 additions per kept lane. ``lookup_ms`` (:func:`lookup_ms`) counts
     M + 2 table lookups per kept lane and the one term2 lookup of a pruned
     lane. Also "kept_lanes" and "filled_lanes"."""
@@ -103,7 +106,8 @@ def grouping_scan_bound(args, out: torch.Tensor, gran: int) -> dict:
     n_kept, filled = int(kept.shape[0]), int(length.sum())
     nbytes = (lut.numel() * 4 + ntab.numel() * 4 + t2.numel() * 4
               + start.numel() * 20 + rows_touched(start, length, N)
-              + int(kept_rows.sum()) * (M + 1) + out.numel() * 4)
+              + int(kept_rows.sum()) * (M + 1) + out.numel() * 4
+              + bins * out.numel() // 8)
     return {**bound(nbytes, n_kept * (M + 2)),
             "lookup_ms": lookup_ms(n_kept * (M + 2) + (filled - n_kept),
                                    lut.device),

@@ -6,8 +6,10 @@ the kernel build's hash (ops.cuda.build) and the deterministic segment sum
 against numpy formulas, and on a card the CUDA kernel and every lab variant
 against the plain version (torch.equal, on slots of length 1, 3, gran - 1,
 runs of empty slots, an output whose rows are not 16-byte aligned, and a
-batch pruned whole), the fused grouping engine against the torch engine,
-and k-means run twice from one seed.
+batch pruned whole), the kernel's bin-32 minima against an amin over its
+output (torch.equal; helpers in tests/test_torch_wide_kernel.py), the fused
+grouping engine against the torch engine, and k-means run twice from one
+seed.
 
 This file imports no jax, so it also runs on a machine with a GPU and no
 jax; tests/conftest.py imports jax, so run it there with
@@ -39,6 +41,7 @@ from ivfhnsw_tpu_torch.ops.cuda import grouping_lab as gl
 from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
 from ivfhnsw_tpu_torch.ops.segment import segment_sum
 from ivfhnsw_tpu_torch.utils.roofline import grouping_scan_bound
+from test_torch_wide_kernel import CELL_SCANS, _bin_args, _check_bins
 
 RTOL, ATOL = 1e-4, 1e-3
 
@@ -231,7 +234,7 @@ def test_lab_variant_table_matches_the_sources():
     assert cases[gl.VARIANTS["direct"]][:5] == ("false",) * 5
     engine = re.search(
         r"launch</\*FILL=\*/(\w+), /\*STREAM=\*/(\w+), /\*SKIP=\*/(\w+),"
-        r"\s*/\*STAGE=\*/(\w+), /\*BULK=\*/(\w+)>",
+        r"\s*/\*STAGE=\*/(\w+), /\*BULK=\*/(\w+), BINS>",
         _source("grouping_scan.cu"))
     assert engine.groups() == cases[gl.VARIANTS[gl.ENGINE_VARIANT]][:5]
     assert '#include "scan_common.cuh"' in _source("adc_scan.cu")
@@ -261,14 +264,16 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
                                                       "torch_kernels"))
 
 
-def test_grouping_scan_bound_counts_kept_rows_once():
+@pytest.mark.parametrize("bins", [False, True])
+def test_grouping_scan_bound_counts_kept_rows_once(bins):
     """Against a count lane by lane: bytes = tables + schedule + one subc
     byte per touched row + M + 1 bytes per row kept by some query + the
-    output; operations = (M + 2) per kept lane."""
-    args = _edge_args(M=8, gran=16)
+    output (and with ``bins`` one f32 minimum a 32 lanes); operations =
+    (M + 2) per kept lane."""
+    args = _edge_args(M=8, gran=32)
     gran = args[-1]
     out = tg.grouping_scan_slots_plain(*args)
-    b = grouping_scan_bound(args[:-1], out, gran)
+    b = grouping_scan_bound(args[:-1], out, gran, bins=bins)
     lut, ntab, t2, codes, _, _, start, length = [a.numpy() for a in args[:8]]
     touched, kept, n_kept = set(), set(), 0
     o = out.numpy()
@@ -283,7 +288,8 @@ def test_grouping_scan_bound_counts_kept_rows_once():
     assert b["kept_lanes"] == n_kept and 0 < n_kept < int(length.sum())
     assert b["filled_lanes"] == int(length.sum())
     nbytes = (lut.size * 4 + 256 * 4 + t2.size * 4 + start.size * 20
-              + len(touched) + len(kept) * 9 + o.size * 4)
+              + len(touched) + len(kept) * 9 + o.size * 4
+              + bins * o.size // 32 * 4)
     assert b["bound_by"] == "bytes" and b["lookup_ms"] is None
     assert b["bound_ms"] == pytest.approx(nbytes / 3.35e9)
 
@@ -336,6 +342,27 @@ def test_kernel_matches_plain_on_card(M, gran):
     assert not torch.isnan(out).any()
     fin = torch.isfinite(ref)
     torch.testing.assert_close(out[fin], ref[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gran,shape", [(256, "small"), (1024, "small"),
+                                        (1024, "cell"), (256, "cell")])
+def test_kernel_bins_bit_equal_on_card(gran, shape):
+    """The engine's kernel with its bin minima, over pruned subgroups, a
+    probe pruned whole, empty runs and ragged slots: the lanes as without
+    bins and as the plain version's (small shapes), the minima torch.equal
+    to amin over the same launch's output, and the fused top-k torch.equal
+    to the amin path's; at the grouping search cell's chunk (B 1024, its
+    slots, at its gran and at 256 with as many lanes) too."""
+    _need_card()
+    if shape == "cell":
+        cg, cs = CELL_SCANS["grouping"]
+        a = _bin_args("grouping", "cuda", gran, B=1024, S=cs * cg // gran,
+                      N=1 << 22)
+    else:
+        a = _bin_args("grouping", "cuda", gran, B=9, S=12)
+    _check_bins("grouping", a, gran, plain=shape != "cell")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

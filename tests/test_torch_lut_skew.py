@@ -244,6 +244,9 @@ def test_lookup_floor_is_none_off_the_card_and_scan_bound_carries_it():
     b = roofline.scan_bound(args, 2 * 5 * 256, 17, 17)
     assert set(b) == {"bound_ms", "bound_by", "lookup_ms"}
     assert b["lookup_ms"] is None and b["bound_ms"] > 0
+    wb = roofline.scan_bound(args, 2 * 5 * 256, 17, 17, bins=True)
+    assert wb["bound_ms"] == pytest.approx(
+        b["bound_ms"] + 2 * 5 * 256 // 32 * 4 / 3.35e9)
 
 
 def test_bank_probe_runs_on_a_cpu_index():

@@ -164,7 +164,8 @@ def test_search_span_tree_and_counters(clean, kind, scan_topk):
     """A traced search_device on the fused engine records one
     ``ivf.search`` root a call and the stage tree under it, a chunk per
     batch; the counters hold kept <= rows <= lanes (kept == rows without
-    pruning)."""
+    pruning), and the wide top-k takes every bin minimum from the scan
+    kernel (one a 32 lanes), reducing none itself."""
     kind, t, _, queries, params = _built(kind)
     t.engine, t.scan_topk = "fused", scan_topk
     try:
@@ -179,8 +180,12 @@ def test_search_span_tree_and_counters(clean, kind, scan_topk):
     assert names.count("ivf.scan") == 6 * (2 if scan_topk == "twophase"
                                            else 1)
     c = profiling.COUNTERS.report()
-    assert set(c) == {"scan.lanes", "scan.rows", "scan.kept"}
+    wide = scan_topk == "wide"
+    assert set(c) == {"scan.lanes", "scan.rows", "scan.kept",
+                      *(["topk.bins_kernel"] if wide else [])}
     assert 0 < c["scan.kept"] <= c["scan.rows"] <= c["scan.lanes"]
+    if wide:
+        assert c["topk.bins_kernel"] * 32 == c["scan.lanes"]
     if kind == "ivfadc":
         assert c["scan.kept"] == c["scan.rows"]
     else:
@@ -228,6 +233,40 @@ def test_grouping_kept_within_a_scan_budget(clean):
     assert c["scan.lanes"] == 32 * t.scan_gran()
     assert 0 < c["scan.kept"] <= c["scan.rows"] <= c["scan.lanes"]
     assert c["scan.kept"] < full
+
+
+@pytest.mark.parametrize("case", ["ivfadc", "grouping", "untraced",
+                                  "coarse_binned"])
+def test_topk_bin_counters(clean, case):
+    """``topk.bins_kernel`` and ``topk.bins_reduced``: a traced fused search
+    takes all B x nslots x gran / 32 bin minima of its scans from the scan
+    kernel and reduces none; an untraced one counts nothing; the coarse
+    sweep's binned reduction (no kernel beside it) only reduces, B x
+    block / 32 bins a block."""
+    kind = "grouping" if case == "grouping" else "ivfadc"
+    _, t, _, queries, params = _built(kind)
+    t.engine = "fused"
+    if case == "coarse_binned":
+        from ivfhnsw_tpu_torch.ops.distances import streaming_topk_l2
+        _traced(lambda: streaming_topk_l2(queries, t.centroids, 2, block=32,
+                                          exact_reduce="binned"))
+        assert profiling.COUNTERS.report() == {
+            "topk.bins_reduced": len(queries) * t.nc // 32}
+        return
+    gran = t.scan_gran()
+    inputs = (t.grouping_scan_inputs(queries[:32], params, gran)[6]
+              if kind == "grouping" else
+              t.scan_inputs(queries[:32], params, gran)[4])
+    want = len(queries) * inputs.shape[1] * gran // 32
+    search = lambda: t.search_device(queries, params, batch=32)
+    if case == "untraced":
+        search()
+        assert profiling.COUNTERS.report() == {}
+        return
+    _traced(search)
+    c = profiling.COUNTERS.report()
+    assert c["topk.bins_kernel"] == want
+    assert "topk.bins_reduced" not in c
 
 
 def test_add_and_finalize_span_trees(clean):

@@ -4,7 +4,11 @@ csrc/adc_scan.cu, shared memory and occupancy, the steps' plain versions
 (held against adc_scan_slots_plain and, at a small size, against the JAX
 package's K1/K2 in interpret mode) and wrapper on the CPU,
 tools/wide_probe.py on the CPU, and, on a card, every step and the
-production kernel against their plain versions and the first port.
+production kernel against their plain versions and the first port. The
+bin-32 minima that the production scans (this kernel and the grouping
+kernel, tests/test_torch_grouping_kernel.py) write beside their output:
+on the CPU the definition (an amin over the output's 32-lane bins) and the
+top-k over them, on a card the kernels against that definition.
 
 The module imports no jax (the JAX parity test imports it inside), so it
 also runs on a machine with a GPU and no jax; tests/conftest.py imports
@@ -15,7 +19,9 @@ Tolerance: none between the port's own versions. Every "full" step and the
 production kernel sum each lane as the plain version does (bias, norm,
 m = 0..M-1 in f32), so they are held to torch.equal with
 adc_scan_slots_plain and with the first port; the split steps to
-torch.equal with their own plain versions. Against JAX's Pallas kernels
+torch.equal with their own plain versions; the bin minima to torch.equal
+with an amin over the same launch's output, and the top-k over them to
+torch.equal with the top-k that reduces the bins itself. Against JAX's Pallas kernels
 (another summation order): rtol 1e-4, atol 1e-3, the +inf pattern equal
 (tests/test_pallas_adc.py:42-46).
 """
@@ -28,7 +34,9 @@ import pytest
 import torch
 
 from ivfhnsw_tpu_torch.ops.cuda import adc_scan as tk
+from ivfhnsw_tpu_torch.ops.cuda import grouping_scan as tg
 from ivfhnsw_tpu_torch.ops.cuda import scan_lab as sl
+from ivfhnsw_tpu_torch.ops.topk import binned_topk_smallest
 from ivfhnsw_tpu_torch.tools import wide_probe as wp
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -37,6 +45,9 @@ STEPS = sorted(sl.WIDE_STEPS)
 FULL = [n for n in STEPS if sl.WIDE_STEPS[n].mode == "full"]
 SPLIT = [n for n in STEPS if n not in FULL]
 RTOL, ATOL = 1e-4, 1e-3
+# The search cells' scans at their 1024-query chunk: (gran, slots a query)
+# of sift1b-ivfadc16.batch-10k and deep1b-grouping-opq16.batch-10k.
+CELL_SCANS = {"ivfadc": (1024, 234), "grouping": (1024, 894)}
 
 
 def _need_card():
@@ -126,14 +137,17 @@ def test_step_table_matches_the_cuda_source():
 @pytest.mark.parametrize("kernel", sorted(sl.WIDE_PRODUCTION))
 def test_production_is_the_named_step(kernel):
     """csrc/adc_scan.cu's two wide kernels instantiate wide_scan.cuh's body
-    at the switches and launch bounds of scan_lab.WIDE_PRODUCTION's steps,
-    and the launcher takes the warp kernel below WARP_GRAN_BELOW codes."""
+    at the switches and launch bounds of scan_lab.WIDE_PRODUCTION's steps
+    (and their BINS switch), and the launcher takes the warp kernel below
+    WARP_GRAN_BELOW codes."""
     with open(os.path.join(CSRC, "adc_scan.cu")) as f:
         src = f.read()
-    m = re.search(kernel + r"\(wide_scan::Params p\) \{\s*"
+    m = re.search(r"template <bool BINS>\s*__global__ void "
+                  r"__launch_bounds__\(wide_scan::THREADS, \d+\)\s*"
+                  + kernel + r"\(wide_scan::Params p\) \{\s*"
                   r"wide_scan::body<min_scan::ADDR_(\w+), (true|false), "
                   r"min_scan::STAGE_(\w+),\s*wide_scan::OUT_(\w+), "
-                  r"wide_scan::(\w+)>\(p, 0u\);", src)
+                  r"wide_scan::(\w+), BINS>\(p, 0u\);", src)
     assert m
     addr, warp, stage, out, mode = m.groups()
     st = sl.WIDE_STEPS[sl.WIDE_PRODUCTION[kernel]]
@@ -145,7 +159,7 @@ def test_production_is_the_named_step(kernel):
     assert st.mode == "full"
     assert f"constexpr int WARP_GRAN_BELOW = {sl.WARP_GRAN_BELOW};" in src
     assert re.search(r"gran < WARP_GRAN_BELOW \? adc_scan_slots_kernel_warp"
-                     r"\s*: adc_scan_slots_kernel_block", src)
+                     r"<BINS>\s*: adc_scan_slots_kernel_block<BINS>", src)
     assert sl.wide_production_step(256).name == "warp"
     assert sl.wide_production_step(1024).name == "dp4a"
 
@@ -183,6 +197,113 @@ def test_owner_of_each_lane():
     assert int(own[0, 0]) == 0 and int(own[8, 33]) == 1
     assert int(own[3, 31]) == 3 * 32 + 31 and int(own[3, 32]) == 96
     assert int(own[2, 64]) == 64 and int(own[7, 127]) == 7 * 32 + 31
+
+
+# ---- the bin minima --------------------------------------------------------------
+
+def _bin_args(kind, device, gran, B, S, N=1 << 16, seed=3):
+    """The scan inputs of ``kind`` ("ivfadc": adc_scan_slots', "grouping":
+    grouping_scan_slots') for B queries x S slots over a random N-row
+    M = 16 store: empty slots (runs of them too), full ones and ragged ones
+    whose length is no multiple of 32 (below 32 too), query 0 all empty.
+    grouping adds term2 tables [B, 8, 64] with half the subgroups pruned
+    (+inf) and probe 1 pruned whole, so whole bins of filled lanes are
+    +inf, each code's subgroup and each slot's probe."""
+    g = torch.Generator().manual_seed(seed)
+    lut = torch.randn((B, 16, 256), generator=g) * 3
+    ntab = torch.rand((256,), generator=g) * 10
+    codes = torch.randint(0, 256, (N, 16), generator=g, dtype=torch.uint8)
+    ncodes = torch.randint(0, 256, (N,), generator=g, dtype=torch.uint8)
+    start = torch.randint(0, N - gran, (B, S), generator=g)
+    what = torch.randint(0, 4, (B, S), generator=g)
+    ragged = torch.randint(1, gran, (B, S), generator=g)
+    ragged = torch.where(ragged % 32 == 0, ragged - 1, ragged)
+    length = torch.where(what == 1, gran, torch.where(
+        what == 2, ragged, torch.where(what == 3, ragged % 32, 0)))
+    length[:, 1:3] = 0                       # a run of empty slots
+    length[:, 3] = gran - 5
+    length[0] = 0
+    bias = torch.randn((B, S), generator=g)
+    a = [lut, ntab, codes, ncodes, start, length.to(torch.int32), bias]
+    if kind == "grouping":
+        t2 = torch.randn((B, 8, 64), generator=g)
+        t2[torch.rand((B, 8, 64), generator=g) < 0.5] = float("inf")
+        t2[:, 1] = float("inf")
+        subc = torch.randint(0, 64, (N,), generator=g, dtype=torch.uint8)
+        seg = torch.randint(0, 8, (B, S), generator=g, dtype=torch.int32)
+        seg[:, 3] = 1
+        a = a[:2] + [t2] + a[2:4] + [subc] + a[4:] + [seg]
+    return [x.to(device) for x in a]
+
+
+def _check_bins(kind, a, gran, plain=True):
+    """The wrapper's bin minima and the top-k over them for inputs ``a``:
+    the lanes as without bins (and, with ``plain``, as the plain
+    version's), the minima torch.equal to an amin over the same launch's
+    output, some +inf and some finite, and the bin-32 top-k and the search's
+    top-k and labels over them torch.equal to the top-k that reduces the
+    bins itself."""
+    mod = tg if kind == "grouping" else tk
+    scan = tg.grouping_scan_slots if kind == "grouping" else tk.adc_scan_slots
+    start, length = a[6:8] if kind == "grouping" else a[4:6]
+    before = scan.launches
+    out, bins = scan(*a, gran, bins=True)
+    B = out.shape[0]
+    assert bins.shape == (B, out.shape[1] // 32)
+    assert torch.equal(bins, out.view(B, -1, 32).amin(-1))
+    assert torch.isinf(bins).any() and torch.isfinite(bins).any()
+    assert torch.equal(out, scan(*a, gran))
+    if a[0].is_cuda:
+        assert scan.launches == before + 2
+    if plain:
+        plain_fn = (tg.grouping_scan_slots_plain if kind == "grouping"
+                    else tk.adc_scan_slots_plain)
+        assert torch.equal(out, plain_fn(*a, gran))
+    for x, y in zip(binned_topk_smallest(out, 10, bmin=bins),
+                    binned_topk_smallest(out, 10)):
+        assert torch.equal(x, y)
+    ids = torch.randperm(a[2 if kind == "ivfadc" else 3].shape[0],
+                         device=out.device).to(torch.int32)
+    got = mod.scan_topk(a, ids, 10, gran)
+    want = tk.topk_labels(out, start, ids, 10, gran)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1] >= 0).any()
+    assert torch.equal(got[1] == -1, torch.isinf(got[0]))
+    if not length[0].any():                  # an all-empty query
+        assert (got[1][0] == -1).all()
+
+
+@pytest.mark.parametrize("gran", [256, 1024])
+@pytest.mark.parametrize("kind", ["ivfadc", "grouping"])
+def test_bin_minima_are_the_plain_amin(kind, gran):
+    """On the CPU the wrappers' bin minima are the plain output's amin, and
+    the fused top-k over them gives the amin path's dists and labels."""
+    a = _bin_args(kind, "cpu", gran, B=6, S=12)
+    length = a[7 if kind == "grouping" else 5]
+    assert ((length % 32 != 0) & (length > 0)).any()
+    assert (length[1:] == 0).any() and (length[1:] == gran).any()
+    _check_bins(kind, a, gran)
+
+
+@pytest.mark.parametrize("kind", ["ivfadc", "grouping"])
+def test_bins_need_gran_a_multiple_of_32(kind):
+    a = _bin_args(kind, "cpu", 256, B=2, S=4)
+    scan = tg.grouping_scan_slots if kind == "grouping" else tk.adc_scan_slots
+    with pytest.raises(ValueError, match="gran % 32"):
+        scan(*a, 48, bins=True)
+    assert scan(*a, 48).shape == (2, 4 * 48)
+
+
+def test_given_bin_minima_come_in_bins_of_32():
+    """The scan kernels' minima are of 32-lane bins: binned_topk_smallest
+    refuses them at another bin size rather than pick the wrong bins."""
+    x = torch.randn(3, 256)
+    bins = tk.bin_minima(x)
+    for a, b in zip(binned_topk_smallest(x, 5, bmin=bins),
+                    binned_topk_smallest(x, 5)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="bins of 32"):
+        binned_topk_smallest(x, 5, bin_size=16, bmin=bins)
 
 
 # ---- plain versions and the wrapper on the CPU --------------------------------
@@ -535,6 +656,31 @@ def test_split_steps_equal_their_plain_on_card(name, gran):
     else:
         assert torch.equal(sl.scan_wide_step(*mis, gran, st),
                            sl.wide_step_plain(*mis, gran, st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gran,shape", [(256, "small"), (1024, "small"),
+                                        (256, "b1"), (1024, "cell"),
+                                        (256, "cell")])
+def test_wide_bins_bit_equal_on_card(gran, shape):
+    """K1 (gran 256) and K2 (gran 1024) with their bin minima: the lanes as
+    without bins and as the plain version's (small shapes), the minima
+    torch.equal to amin over the same launch's output, and the fused top-k
+    torch.equal to the amin path's; at the IVFADC search cell's chunk (B
+    1024, its slots, at its gran and at 256 with as many lanes) too."""
+    _need_card()
+    if shape == "cell":
+        cg, cs = CELL_SCANS["ivfadc"]
+        a = _bin_args("ivfadc", "cuda", gran, B=1024, S=cs * cg // gran,
+                      N=1 << 22)
+    else:
+        a = _bin_args("ivfadc", "cuda", gran, B=1 if shape == "b1" else 9,
+                      S=12)
+        if shape == "b1":
+            a[5][0] = torch.tensor([gran - 3, 0, 0, 31] + [gran] * 8,
+                                   dtype=torch.int32)
+    _check_bins("ivfadc", a, gran, plain=shape != "cell")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
