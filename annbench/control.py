@@ -12,6 +12,7 @@ reference at the configuration's own precision, which has to pass.
 """
 
 import argparse
+import importlib
 import json
 import os
 import sys
@@ -20,40 +21,51 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _control_search(R, cfg, tp, dep, cb, norms, g, prec: str) -> dict:
+    import torch
+    pool_q = dep.queries(tp["queries"])
+    sample = torch.randperm(tp["queries"], generator=g,
+                            device=dep.device)[:tp["check_queries"]]
+    Qs = pool_q[sample]
+    D, L, state = R.control_search(cfg, dep, cb, norms, Qs, prec)
+    owner = torch.arange(Qs.shape[0], device=dep.device)
+    return R.judge_search(cfg, dep, cb, norms, Qs, D, L, owner, state)[0]
+
+
+def _control_add(R, cfg, tp, dep, cb, norms, g, prec: str) -> dict:
+    import torch
+    n = tp["segment_rows"]
+    m = min(tp["check_rows"], n * tp["pool_segments"])
+    pick = torch.randperm(n * tp["pool_segments"], generator=g,
+                          device=dep.device)[:m]
+    seg, row = pick // n, pick % n
+    x = torch.empty((m, dep.d), device=dep.device)
+    for j in torch.unique(seg).tolist():
+        x[seg == j] = dep.segment(j, n)[row[seg == j]]
+    keys, codes, ncodes = R.control_add(cfg, dep, cb, norms, x, prec)
+    return R.judge_add(cfg, dep, cb, norms, x, keys, codes, ncodes, 0)
+
+
+# The control of each kind of judgement a traffic's loop asks for.
+CONTROLS = {"search": _control_search, "add": _control_add}
+
+
 def control_numbers(name: str, seed: int, prec: str, device,
                     base: str | None = None) -> dict:
     """The check's numbers with the reference in ``prec`` in the program's
     place, for cell ``name`` and seed ``seed``."""
-    import torch
     from annbench import harness
     from annbench.gen.deployment import Deployment, generator
     from annbench.reference import judge as J
     spec = harness.load_cell(name, base or harness.HERE)
     cfg, tp = spec["config"], spec["traffic"]
+    judge = importlib.import_module(f"annbench.loops.{tp['kind']}").JUDGE
     dep = Deployment(cfg, seed, device)
     cb, norms = dep.quantizers()
     g = generator(dep.device, seed, "check")
-    if tp["kind"] == "search_batch":
-        pool_q = dep.queries(tp["queries"])
-        sample = torch.randperm(tp["queries"], generator=g,
-                                device=dep.device)[:tp["check_queries"]]
-        Qs = pool_q[sample]
-        D, L, state = J.control_search(cfg, dep, cb, norms, Qs, prec)
-        owner = torch.arange(Qs.shape[0], device=dep.device)
-        nums, _ = J.judge_search(cfg, dep, cb, norms, Qs, D, L, owner, state)
-        limits = cfg["limits"]["search"]
-    else:
-        n = tp["segment_rows"]
-        m = min(tp["check_rows"], n * tp["pool_segments"])
-        pick = torch.randperm(n * tp["pool_segments"], generator=g,
-                              device=dep.device)[:m]
-        seg, row = pick // n, pick % n
-        x = torch.empty((m, dep.d), device=dep.device)
-        for j in torch.unique(seg).tolist():
-            x[seg == j] = dep.segment(j, n)[row[seg == j]]
-        keys, codes, ncodes = J.control_add(cfg, dep, cb, norms, x, prec)
-        nums = J.judge_add(cfg, dep, cb, norms, x, keys, codes, ncodes, 0)
-        limits = cfg["limits"]["add"]
+    nums = CONTROLS[judge](J.reference_module(cfg), cfg, tp, dep, cb,
+                           norms, g, prec)
+    limits = cfg["limits"][judge]
     return {"cell": name, "seed": seed, "precision": prec,
             "correct": all(nums[k] <= limits[k] for k in nums),
             "checks": {k: {"value": J.worst(v), "limit": limits[k]}

@@ -3,10 +3,12 @@ window produced, and the result line.
 
 A cell is found by name: ``workloads/<cell>.json`` names its configuration
 (``configs/<config>.json``) and its traffic (``traffic/<traffic>.json``);
-the configuration names the system (``systems/<index>.py``), the traffic
-its kind (``loops/<kind>.py``); each per-layer metric is
-``metrics/<metric>.py``; ``BENCHMARK.json`` says which metrics a cell
-reports. Adding any of them is adding files.
+the configuration names the system (``systems/<index>.py``) and its
+reference (``reference/<reference>.py``, by default ``<index>``), the
+traffic its kind (``loops/<kind>.py``) and, optionally, the cell's search
+operating point; each per-layer metric is ``metrics/<metric>.py``;
+``BENCHMARK.json`` says which metrics a cell reports. Adding any of them is
+adding files.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from annbench.trace import Trace, Tracer
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ("jax", "jaxlib", "flax", "ivfhnsw_tpu")
+# What a traffic mix's "search" object may set over its configuration.
+SEARCH_KEYS = ("nprobe", "max_codes", "do_pruning")
 
 
 def _json(path: str) -> dict:
@@ -35,10 +39,18 @@ def _json(path: str) -> dict:
 
 
 def load_cell(name: str, base: str = HERE) -> dict:
-    """{"cell", "config", "traffic", "chips"} of cell ``name``."""
+    """{"cell", "config", "traffic", "chips"} of cell ``name``. The
+    traffic's ``search`` object (only ``SEARCH_KEYS``) sets the cell's
+    operating point over its configuration's: the system, the reference,
+    the control and the metric readers all read it from "config"."""
     w = _json(os.path.join(base, "workloads", f"{name}.json"))
     cfg = _json(os.path.join(base, "configs", f"{w['config']}.json"))
     tr = _json(os.path.join(base, "traffic", f"{w['traffic']}.json"))
+    point = tr.get("search", {})
+    if not isinstance(point, dict) or set(point) - set(SEARCH_KEYS):
+        raise ValueError(f"traffic {w['traffic']}: 'search' may set only "
+                         f"{list(SEARCH_KEYS)}, got {point!r}")
+    cfg.update(point)
     return {"cell": w, "config": cfg, "traffic": tr, "chips": w["chips"]}
 
 
@@ -70,6 +82,7 @@ class Run:
         self.seed, self.device, self.log = seed, torch.device(device), log
         self.system = importlib.import_module(
             f"annbench.systems.{self.cfg['index']}")
+        self.reference = J.reference_module(self.cfg)
         self.loop = importlib.import_module(
             f"annbench.loops.{self.traffic['kind']}")
         self.state: dict = {}
@@ -111,8 +124,8 @@ def _check_search(run: Run):
     Qs = run.state["pool_q"][sample]
     run.idx = None
     _free(run)
-    nums, ref = J.judge_search(run.cfg, run.dep, run.cb, run.norms, Qs, D,
-                               L, owner, state)
+    nums, ref = run.reference.judge_search(run.cfg, run.dep, run.cb,
+                                           run.norms, Qs, D, L, owner, state)
     for k, v in getattr(ref, "notes", {}).items():
         run.log(f"{k} {v!r}")
     return nums, ref
@@ -140,9 +153,13 @@ def _check_add(run: Run):
     for j in torch.unique(seg).tolist():
         m = seg == j
         x[m] = run.dep.segment(j, tp["segment_rows"])[row[m]]
-    return J.judge_add(run.cfg, run.dep, run.cb, run.norms, x[found],
-                       keys[found], codes[found], ncodes[found],
-                       missing), None
+    return run.reference.judge_add(run.cfg, run.dep, run.cb, run.norms,
+                                   x[found], keys[found], codes[found],
+                                   ncodes[found], missing), None
+
+
+# The check of each kind of judgement a loop asks for (its ``JUDGE``).
+CHECKS = {"search": _check_search, "add": _check_add}
 
 
 def _free(run: Run) -> None:
@@ -157,6 +174,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
     spec = load_cell(name, base)
     run = Run(spec, seed, device, log)
+    log("operating point: " + ", ".join(f"{k} {run.cfg.get(k)!r}"
+                                        for k in SEARCH_KEYS))
     run.setup()
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s")
@@ -176,7 +195,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     kind = run.loop.JUDGE
     limits = run.cfg["limits"][kind]
     t_check = time.perf_counter()
-    nums, ref = (_check_search if kind == "search" else _check_add)(run)
+    nums, ref = CHECKS[kind](run)
     log(f"check {time.perf_counter() - t_check:.3f} s")
     checks = {k: {"value": J.worst(v), "limit": limits[k]}
               for k, v in nums.items()}

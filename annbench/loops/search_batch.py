@@ -43,7 +43,7 @@ def _search(run, j: int):
 def window(run, seconds: float, tracer) -> dict:
     nq = run.traffic["queries"]
     outs = []
-    dispatch_s, n_dispatch = 0.0, 0
+    dispatch_s, call_s = 0.0, []
     j = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
@@ -55,9 +55,10 @@ def window(run, seconds: float, tracer) -> dict:
             d, l = _search(run, j)
             tr = time.perf_counter()
             l.cpu()                 # the call's answer, on the host
+            tc = time.perf_counter()
         if tracer is None or not tracer.covers(j):
             dispatch_s += tr - td
-            n_dispatch += 1
+            call_s.append(tc - td)
         if tracer is not None:
             tracer.after(j)
         outs.append((d, l))
@@ -68,8 +69,8 @@ def window(run, seconds: float, tracer) -> dict:
     run.state["outs"] = outs
     return {"e2e": {"qps": j * nq / elapsed},
             "attempted": j * nq, "failed": 0,
-            "host": {"dispatch_s": dispatch_s, "n_dispatch": n_dispatch,
-                     "calls": j, "elapsed_s": elapsed}}
+            "host": {"dispatch_s": dispatch_s, "call_s": call_s, "calls": j,
+                     "elapsed_s": elapsed}}
 
 
 def answers(run, sample: torch.Tensor):

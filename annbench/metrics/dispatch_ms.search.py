@@ -5,6 +5,6 @@ answer is read back), averaged over the window's untraced calls."""
 
 def read(ctx):
     h = ctx.host
-    if not h.get("n_dispatch"):
+    if not h.get("call_s"):
         return None
-    return h["dispatch_s"] / h["n_dispatch"] * 1e3
+    return h["dispatch_s"] / len(h["call_s"]) * 1e3

@@ -19,9 +19,10 @@ from __future__ import annotations
 
 import torch
 
-from annbench.reference.core import (INF, admitted, clusters, coarse_top,
-                                     nearest_with_alt, ranges)
-from annbench.reference.ivfadc import RefIVFADC
+from annbench.reference.core import (INF, Prec, admitted, clusters,
+                                     coarse_top, nearest_with_alt, ranges)
+from annbench.reference.ivfadc import (RefIVFADC, reference_answers,
+                                       search_gaps)
 
 
 class RefGrouping(RefIVFADC):
@@ -244,3 +245,33 @@ def neighbor_gap(prec, C: torch.Tensor, nn: torch.Tensor,
         gap = (d.gather(1, blk).amax(1) - kth).clamp_min(0).amax()
         worst = max(worst, float(gap))
     return worst / float(2 * cn.max())
+
+
+def judge_search(cfg, dep, cb, norms, Qs, D, L, owner, state):
+    """(gaps, reference) of the window's answers (``reference.judge``),
+    the reference following the program's neighbour lists and alphas
+    (``state``), with those checked by themselves over every group:
+    ``nn_gap`` and ``alpha_gap``."""
+    ref = RefGrouping(cfg, dep, cb, norms, Prec("f64"), state["nn"],
+                      state["alphas"])
+    ref.prepare_for(Qs)
+    out = search_gaps(ref, cfg, Qs, D, L, owner)
+    out["nn_gap"] = neighbor_gap(ref.prec, dep.centroids, state["nn"])
+    every = torch.ones(ref.nc, dtype=torch.bool, device=ref.C.device)
+    alpha, slack = ref.alpha_pass(every)
+    dev = (ref.prec.t(state["alphas"]) - alpha).abs()
+    out["alpha_gap"] = float((dev - slack).clamp_min(0).amax())
+    ref.notes = {"alpha_slack_max": float(slack.amax()),
+                 "alpha_slack_groups": int((slack > 0).sum()),
+                 "alpha_dev_max": float(dev.amax()),
+                 "groups": ref.nc}
+    return out, ref
+
+
+def control_search(cfg, dep, cb, norms, Qs, prec_name: str = "tf32"):
+    """The reference's own answers to Qs in ``prec_name``, with its own
+    neighbour lists and alphas: (D, L, the state it followed)."""
+    ref = RefGrouping(cfg, dep, cb, norms, Prec(prec_name))
+    ref.prepare_for(Qs)
+    D, L = reference_answers(ref, cfg, Qs)
+    return D, L, {"nn": ref.nn, "alphas": ref.alpha.float()}

@@ -241,3 +241,92 @@ def judge_query(cand, D: torch.Tensor, L: torch.Tensor, k: int):
                + ((L < 0) & torch.isfinite(D)).sum()
                + ((L >= 0) & torch.isinf(D)).sum())
     return float(rank / scale), float(lgap / scale), int(foreign)
+
+
+def search_gaps(ref, cfg, Qs, D, L, owner, block: int = 32) -> dict:
+    """``rank_gap``, ``label_gap`` and ``foreign`` of the answers D, L [n,
+    k] (answer i belongs to sample query owner[i]) to the sample queries
+    Qs [m, d], against the candidates of the prepared reference ``ref``."""
+    k = cfg["k"]
+    out = {"rank_gap": 0.0, "label_gap": 0.0, "foreign": 0}
+    order = torch.argsort(owner, stable=True)
+    D, L, owner = D[order], L[order], owner[order]
+    bounds = torch.searchsorted(owner, torch.arange(
+        Qs.shape[0] + 1, device=owner.device))
+    for s in range(0, Qs.shape[0], block):
+        for i, cand in enumerate(ref.candidates(Qs[s:s + block])):
+            a, b = int(bounds[s + i]), int(bounds[s + i + 1])
+            if a == b:
+                continue
+            r, lg, f = judge_query(cand, D[a:b], L[a:b], k)
+            out["rank_gap"] = max(out["rank_gap"], r)
+            out["label_gap"] = max(out["label_gap"], lg)
+            out["foreign"] += f
+    return out
+
+
+def reference_answers(ref, cfg, Qs, block: int = 32):
+    """The prepared reference ``ref``'s own answers to Qs (no ties kept):
+    (D [m, k] f32, L [m, k])."""
+    D, L = [], []
+    for s in range(0, Qs.shape[0], block):
+        d, l = ref.answer(Qs[s:s + block], cfg["k"])
+        D.append(d)
+        L.append(l)
+    return torch.cat(D).float(), torch.cat(L)
+
+
+def judge_search(cfg, dep, cb, norms, Qs, D, L, owner, state):
+    """(gaps, reference) of the window's answers (``reference.judge``)."""
+    ref = RefIVFADC(cfg, dep, cb, norms, Prec("f64"))
+    ref.prepare_for(Qs)
+    return search_gaps(ref, cfg, Qs, D, L, owner), ref
+
+
+def control_search(cfg, dep, cb, norms, Qs, prec_name: str = "tf32"):
+    """The reference's own answers to Qs in ``prec_name``: (D, L, {})."""
+    ref = RefIVFADC(cfg, dep, cb, norms, Prec(prec_name))
+    ref.prepare_for(Qs)
+    return (*reference_answers(ref, cfg, Qs), {})
+
+
+def judge_add(cfg, dep, cb, norms, x, keys, codes, norm_codes,
+              missing: int, step: int = 4096) -> dict:
+    """Gaps of the stored list ``keys``, PQ ``codes`` and ``norm_codes`` of
+    sample rows x [n, d] to the nearest choices (f64): the list's distance
+    over the nearest centroid's, each subvector's codeword's distance over
+    the nearest codeword's, the norm code's distance to the reconstruction's
+    squared norm over the nearest norm centroid's, each relative to the
+    magnitude of the terms."""
+    ref = RefIVFADC(cfg, dep, cb, norms, Prec("f64"), with_base=False)
+    prec, M = ref.prec, ref.M
+    gap = 0.0
+    for s in range(0, x.shape[0], step):
+        xs = prec.t(x[s:s + step])
+        dmin = coarse_top(prec, xs, ref.C, ref.cn, 1)[0][:, 0]
+        ck = ref.C[keys[s:s + step]]
+        dk = ((xs - ck) ** 2).sum(1)
+        key_gap = (dk - dmin) / ((xs * xs).sum(1) + ref.cn.max())
+        r = ref.rotate(xs - ck)
+        n, d = r.shape
+        rs = r.reshape(n, M, d // M)
+        dist = ((rs[:, :, None, :] - ref.cb[None]) ** 2).sum(-1)   # [n, M, K]
+        dc = dist.gather(2, codes[s:s + step].long()[:, :, None])[:, :, 0]
+        scale = (rs * rs).sum(-1) + ref.cbn.amax(1)[None]
+        code_gap = ((dc - dist.amin(2)) / scale).amax(1)
+        nrm = ref._recon_norm(codes[s:s + step].long(), ck)
+        dn = (nrm[:, None] - ref.ntab[None]).abs()
+        norm_gap = ((dn.gather(1, norm_codes[s:s + step].long()[:, None])[:, 0]
+                     - dn.amin(1)) / nrm.abs().clamp_min(1e-30))
+        gap = max(gap, float(torch.stack([key_gap, code_gap, norm_gap]
+                                         ).clamp_min(0).amax()))
+    return {"add_gap": gap, "missing": int(missing)}
+
+
+def control_add(cfg, dep, cb, norms, x, prec_name: str = "tf32"):
+    """The reference's own (keys, codes, norm codes) of rows x."""
+    ref = RefIVFADC(cfg, dep, cb, norms, Prec(prec_name), with_base=False)
+    keys = coarse_top(ref.prec, ref.prec.t(x), ref.C, ref.cn, 1)[1][:, 0]
+    b, _, lo, _ = ref.encode(x, ref.C[keys])
+    ncode = (lo[:, None] - ref.ntab[None]).abs().argmin(1)
+    return keys, b, ncode

@@ -2,7 +2,8 @@
 port's ``IVFADCGroupingIndex``, built as the upstream's grouping
 construction orders it (neighbour centroids, the alpha pass over every
 base row, the encode pass with the precomputed lists, ``finalize``, the
-inter-centroid distances), with pruning on."""
+inter-centroid distances), with pruning as the cell's operating point
+sets it."""
 
 from __future__ import annotations
 

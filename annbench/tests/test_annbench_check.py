@@ -4,6 +4,9 @@ the control (the reference in the program's place at TF32) fails and the
 same reference at float32 passes; and a run whose timed path is broken
 underneath comes out not correct, once for each fault the cell can have."""
 
+import dataclasses
+import json
+import os
 import time
 
 import numpy as np
@@ -16,8 +19,9 @@ from annbench.tests.toy import bench
 from ivfhnsw_tpu_torch.models.ivfadc import IVFADCIndex
 
 CELLS = ["sift1b-ivfadc16.batch-10k", "deep1b-grouping-opq16.batch-10k",
-         "sift1b-ivfadc16.add-1m"]
-SEARCH = CELLS[:2]
+         "deep1b-grouping-opq16.noprune-10k", "sift1b-ivfadc16.add-1m"]
+SEARCH = CELLS[:3]
+ADD = CELLS[3]
 
 
 def run(toy, cell, seed=11):
@@ -110,6 +114,28 @@ def _add_altered(orig):
 def test_add_faults_fail(toy, fault, monkeypatch):
     name = "add_batch" if fault is _add_altered else "add_batch_device"
     orig = getattr(IVFADCIndex, name)
-    run(toy, CELLS[2])                              # the toy is sound first
+    run(toy, ADD)                                   # the toy is sound first
     monkeypatch.setattr(IVFADCIndex, name, fault(orig))
-    assert not run(toy, CELLS[2])["correct"]
+    assert not run(toy, ADD)["correct"]
+
+
+def test_pruned_answers_fail_the_unpruned_judge(toy, monkeypatch):
+    """The cell's operating point reaches the judge: answers searched with
+    pruning on, in a cell whose traffic turns pruning off, are not
+    correct."""
+    from annbench.systems import grouping
+    cell = "deep1b-grouping-opq16.noprune-10k"
+    # On the toy, pruning moves answers only where the budget binds inside
+    # the nearest lists (pruning's mean then spans them alone).
+    path = os.path.join(toy, "traffic", "noprune-10k.json")
+    with open(path) as f:
+        tr = json.load(f)
+    tr["search"]["max_codes"] = 200
+    with open(path, "w") as f:
+        json.dump(tr, f)
+    assert not harness.load_cell(cell, toy)["config"]["do_pruning"]
+    assert run(toy, cell)["correct"]
+    orig = grouping.search_params
+    monkeypatch.setattr(grouping, "search_params", lambda cfg: (
+        dataclasses.replace(orig(cfg), do_pruning=True)))
+    assert not run(toy, cell)["correct"]

@@ -2,6 +2,7 @@
 names, and a cell, configuration, traffic mix or per-layer metric is added
 by adding files."""
 
+import ast
 import json
 import os
 import shutil
@@ -77,3 +78,17 @@ def test_generators_deterministic_in_seed(toy):
     a = Deployment(spec["config"], 9, "cpu")
     b = Deployment(spec["config"], 9, "cpu")
     assert torch.equal(a.segment(3, 100), b.segment(3, 100))
+
+
+def test_layer_frames_exist_in_the_port():
+    """Every (file, function) that a layer file names is defined in the
+    port: after a rename there, its launches would go to "other" unseen."""
+    root = os.path.dirname(BENCH)
+    for stem, spec in load_layers().items():
+        for file, func in spec["frames"]:
+            assert file.startswith("ivfhnsw_tpu_torch/"), (stem, file)
+            with open(os.path.join(root, file)) as f:
+                tree = ast.parse(f.read())
+            assert func in {n.name for n in ast.walk(tree) if isinstance(
+                n, (ast.FunctionDef, ast.AsyncFunctionDef))}, (stem, file,
+                                                                func)

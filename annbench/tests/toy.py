@@ -43,6 +43,9 @@ def toy_base(tmp: str) -> str:
         with open(path) as f:
             tr = json.load(f)
         tr.update(TOY_TRAFFIC[tr["kind"]])
+        if "search" in tr:
+            tr["search"].update({k: v for k, v in TOY_SEARCH.items()
+                                 if k in tr["search"]})
         with open(path, "w") as f:
             json.dump(tr, f)
     return base
